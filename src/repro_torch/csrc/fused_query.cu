@@ -1,0 +1,226 @@
+// Fused candidate gather + exact distance + running top-k: kernel B of the
+// port, the query's hot loop.
+//
+// Replaces the TPU kernel repro/kernels/fused_query.py (fused_gather_topk,
+// pallas_call at :146, body _kernel at :45).
+//
+// Contract (plain version: repro_torch/kernels/ref.py fused_gather_topk_ref):
+//   q (B, d) f32, ids (B, M) int32 with -1 marking empty slots, db (N, d)
+//   f32 -> out_d (B, k) f32, out_i (B, k) int32: the k smallest scores in
+//   (score, slot) lexicographic order, so ties keep the earliest slot like
+//   the reference's lax.top_k; +inf / -1 where fewer than k slots score a
+//   finite distance.  The metric (l2, dot negated, chi2, cosine) is a
+//   template parameter.  Cosine divides the dot product by the two norms
+//   where the reference normalizes both vectors first: the same value, other
+//   rounding.
+//
+// What bounds it on an H100: bytes.  Every valid slot reads one db row
+// (d x 4 B, 3,136 B at d = 784) that nothing else in the block reuses, and
+// the arithmetic is 3 flops per element, far below the card's ridge point.
+// The rows (188 MB for MNIST-784) do not fit the 50 MB L2, so the floor is
+// valid_slots x d x 4 B over the memory rate.  The design therefore moves
+// each row exactly once and never writes the (B, M, d) gathered block:
+// one block of 256 threads per query row, the query in shared memory; each
+// warp takes candidate slots in turn and its lanes read the row with
+// coalesced 16-byte loads, an empty slot (-1) issues no load; scores of a
+// 256-slot tile land in shared memory and only those that beat the running
+// k-th best are merged, by rank, into the running top-k kept in shared
+// memory.  Many blocks per SM keep enough loads in flight to cover latency.
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define THREADS 256
+#define TILE 256
+#define KMAX 128
+#define EPS 1e-12f
+
+enum Metric { L2 = 0, DOT = 1, CHI2 = 2, COSINE = 3 };
+
+template <int METRIC>
+__device__ __forceinline__ void accum(float x, float y, float& a, float& c) {
+  if (METRIC == L2) {
+    const float t = x - y;
+    a += t * t;
+  } else if (METRIC == DOT) {
+    a += x * y;
+  } else if (METRIC == CHI2) {
+    const float t = x - y;
+    a += t * t / (x + y + EPS);
+  } else {
+    a += x * y;
+    c += y * y;
+  }
+}
+
+__device__ __forceinline__ bool lex_less(float da, int sa, float db, int sb) {
+  return da < db || (da == db && sa < sb);
+}
+
+template <int METRIC, bool VEC4>
+__global__ void fused_gather_topk_kernel(const float* __restrict__ q,
+                                         const int* __restrict__ ids,
+                                         const float* __restrict__ db,
+                                         float* __restrict__ out_d,
+                                         int* __restrict__ out_i, int M, int N,
+                                         int d, int k) {
+  extern __shared__ float qs[];
+  __shared__ float tile_d[TILE];
+  __shared__ float surv_d[TILE];
+  __shared__ int surv_s[TILE];
+  __shared__ float run_d[KMAX], nxt_d[KMAX];
+  __shared__ int run_s[KMAX], nxt_s[KMAX];
+  __shared__ int n_surv;
+  __shared__ float q_norm;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int* ids_b = ids + (size_t)b * M;
+
+  for (int c = tid; c < d; c += THREADS) qs[c] = q[(size_t)b * d + c];
+  if (tid < k) {  // distinct (+inf, beyond-M) keys keep every rank unique
+    run_d[tid] = INFINITY;
+    run_s[tid] = M + tid;
+  }
+  if (tid == 0) n_surv = 0;
+  __syncthreads();
+  if (METRIC == COSINE) {
+    if (warp == 0) {
+      float s = 0.f;
+      for (int c = lane; c < d; c += 32) s += qs[c] * qs[c];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) q_norm = sqrtf(s) + EPS;
+    }
+    __syncthreads();
+  }
+
+  for (int base = 0; base < M; base += TILE) {
+    // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
+    const int first = base + warp * 32;
+    const int my_id = first + lane < M ? ids_b[first + lane] : -1;
+    float my_score = INFINITY;
+    for (int i = 0; i < 32; ++i) {
+      const int id = __shfl_sync(0xffffffffu, my_id, i);
+      if (id < 0) continue;  // empty slot: no load, scores +inf
+      const float* row = db + (size_t)min(id, N - 1) * d;
+      float a = 0.f, cc = 0.f;
+      if (VEC4) {
+        const float4* r4 = reinterpret_cast<const float4*>(row);
+        const float4* q4 = reinterpret_cast<const float4*>(qs);
+        for (int c = lane; c < (d >> 2); c += 32) {
+          const float4 y = __ldg(r4 + c);
+          const float4 x = q4[c];
+          accum<METRIC>(x.x, y.x, a, cc);
+          accum<METRIC>(x.y, y.y, a, cc);
+          accum<METRIC>(x.z, y.z, a, cc);
+          accum<METRIC>(x.w, y.w, a, cc);
+        }
+      } else {
+        for (int c = lane; c < d; c += 32) accum<METRIC>(qs[c], __ldg(row + c), a, cc);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        if (METRIC == COSINE) cc += __shfl_xor_sync(0xffffffffu, cc, o);
+      }
+      if (lane == i) {
+        if (METRIC == DOT) my_score = -a;
+        else if (METRIC == COSINE) my_score = 1.f - a / (q_norm * (sqrtf(cc) + EPS));
+        else my_score = a;
+      }
+    }
+    tile_d[tid] = my_score;
+    __syncthreads();
+
+    // ---- keep only finite scores that beat the running k-th best
+    {
+      const float s = tile_d[tid];
+      const int slot = base + tid;
+      if (slot < M && isfinite(s) && lex_less(s, slot, run_d[k - 1], run_s[k - 1])) {
+        const int pos = atomicAdd(&n_surv, 1);
+        surv_d[pos] = s;
+        surv_s[pos] = slot;
+      }
+    }
+    __syncthreads();
+
+    // ---- rank-merge survivors into the running top-k (keys are unique,
+    //      so ranks are a permutation and each of the k places fills once)
+    const int ns = n_surv;
+    if (ns > 0) {
+      if (tid < ns) {
+        const float s = surv_d[tid];
+        const int slot = surv_s[tid];
+        int rank = 0;
+        for (int j = 0; j < k; ++j) rank += lex_less(run_d[j], run_s[j], s, slot);
+        for (int j = 0; j < ns; ++j) rank += lex_less(surv_d[j], surv_s[j], s, slot);
+        if (rank < k) {
+          nxt_d[rank] = s;
+          nxt_s[rank] = slot;
+        }
+      }
+      if (tid < k) {
+        const float s = run_d[tid];
+        const int slot = run_s[tid];
+        int rank = tid;
+        for (int j = 0; j < ns; ++j) rank += lex_less(surv_d[j], surv_s[j], s, slot);
+        if (rank < k) {
+          nxt_d[rank] = s;
+          nxt_s[rank] = slot;
+        }
+      }
+      __syncthreads();
+      if (tid < k) {
+        run_d[tid] = nxt_d[tid];
+        run_s[tid] = nxt_s[tid];
+      }
+    }
+    if (tid == 0) n_surv = 0;
+    __syncthreads();
+  }
+
+  if (tid < k) {
+    const float s = run_d[tid];
+    out_d[(size_t)b * k + tid] = s;
+    out_i[(size_t)b * k + tid] = isinf(s) ? -1 : ids_b[run_s[tid]];
+  }
+}
+
+template <int METRIC, bool VEC4>
+static int launch(const float* q, const int* ids, const float* db, float* out_d,
+                  int* out_i, int B, int M, int N, int d, int k, cudaStream_t stream) {
+  auto kernel = fused_gather_topk_kernel<METRIC, VEC4>;
+  const size_t smem = (size_t)d * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<B, THREADS, smem, stream>>>(q, ids, db, out_d, out_i, M, N, d, k);
+  return (int)cudaGetLastError();
+}
+
+template <int METRIC>
+static int launch_metric(const float* q, const int* ids, const float* db, float* out_d,
+                         int* out_i, int B, int M, int N, int d, int k, cudaStream_t s) {
+  if (d % 4 == 0) return launch<METRIC, true>(q, ids, db, out_d, out_i, B, M, N, d, k, s);
+  return launch<METRIC, false>(q, ids, db, out_d, out_i, B, M, N, d, k, s);
+}
+
+extern "C" int fused_gather_topk(const void* q, const void* ids, const void* db, void* out_d,
+                                 void* out_i, int B, int M, int N, int d, int k, int metric,
+                                 void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  const float* qf = (const float*)q;
+  const int* ii = (const int*)ids;
+  const float* dbf = (const float*)db;
+  float* od = (float*)out_d;
+  int* oi = (int*)out_i;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (metric) {
+    case L2: return launch_metric<L2>(qf, ii, dbf, od, oi, B, M, N, d, k, s);
+    case DOT: return launch_metric<DOT>(qf, ii, dbf, od, oi, B, M, N, d, k, s);
+    case CHI2: return launch_metric<CHI2>(qf, ii, dbf, od, oi, B, M, N, d, k, s);
+    case COSINE: return launch_metric<COSINE>(qf, ii, dbf, od, oi, B, M, N, d, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,62 @@
+"""Mode-dispatched entry points to the kernels (port of ``repro/kernels/ops.py``).
+
+Policy (``mode``):
+  * "auto"   -- the CUDA kernel for tensors on a CUDA device, the plain
+                PyTorch version for tensors on the CPU;
+  * "kernel" -- the CUDA kernel; raises for CPU tensors.  "pallas" is
+                accepted as its alias, so a reference ``SearchParams``
+                carried across stays valid;
+  * "ref"    -- the plain version on any device (tests, and the kernels'
+                comparisons on the card).
+No path falls back from a kernel that fails to build or launch.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import forest_traverse_hbm as _trav
+from repro_torch.kernels import fused_query as _fused
+from repro_torch.kernels import ref as _ref
+
+MODES = ("auto", "kernel", "ref")
+_ALIASES = {"pallas": "kernel"}
+
+
+def canonical_mode(mode: str) -> str:
+    m = _ALIASES.get(mode, mode)
+    if m not in MODES:
+        raise ValueError(f"mode must be auto|kernel|ref (or pallas), "
+                         f"got {mode!r}")
+    return m
+
+
+def use_kernel(mode: str, t: torch.Tensor) -> bool:
+    """Whether ``mode`` sends work on tensor ``t`` to the CUDA kernel."""
+    mode = canonical_mode(mode)
+    if mode == "ref":
+        return False
+    if mode == "kernel" and not t.is_cuda:
+        raise ValueError("mode='kernel' needs CUDA tensors; use mode='auto' "
+                         "or 'ref' on the CPU")
+    return t.is_cuda
+
+
+def fused_rerank(q: torch.Tensor, ids: torch.Tensor, db: torch.Tensor, k: int,
+                 metric: str = "l2", mode: str = "auto"
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused db-row gather + distance + top-k over one candidate chunk;
+    ids (B, M) int32 with -1 marking empty slots."""
+    if use_kernel(mode, q):
+        return _fused.fused_gather_topk(q, ids, db, k, metric)
+    return _ref.fused_gather_topk_ref(q, ids, db, k, metric)
+
+
+def traverse(feat: torch.Tensor, thresh: torch.Tensor,
+             child_base: torch.Tensor, queries: torch.Tensor, max_depth: int,
+             n_probes: int = 1, mode: str = "auto") -> torch.Tensor:
+    """K = 1 forest descent -> (L, B), or (L, B, n_probes) leaf ids."""
+    if use_kernel(mode, queries):
+        return _trav.forest_traverse_hbm(feat, thresh, child_base, queries,
+                                         max_depth, n_probes)
+    return _ref.forest_traverse_ref(feat, thresh, child_base, queries,
+                                    max_depth, n_probes)

@@ -1,0 +1,107 @@
+"""Plain PyTorch versions of the CUDA kernels (port of ``repro/kernels/ref.py``).
+
+Each mirrors its kernel's contract exactly: shapes, dtypes, -1 slots and
+tie-breaking.  They are what a wrapper runs for tensors on the CPU, what
+``mode="ref"`` forces, and what ``chip_smoke.py`` holds the kernels
+against on the card.  Each call adds one to ``REF_CALLS[<name>]``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core.distances import METRICS
+from repro_torch.kernels.common import POS_INF, REF_CALLS, topk_smallest
+
+
+def fused_gather_topk_ref(q: torch.Tensor, ids: torch.Tensor,
+                          db: torch.Tensor, k: int, metric: str = "l2"
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``kernels.fused_query.fused_gather_topk``.
+
+    q (B, d), ids (B, M) int32 with -1 marking invalid slots, db (N, d) ->
+    (dists (B, k) f32, ids (B, k) int32), ascending, ties to the earliest
+    slot; +inf / -1 where fewer than k slots are valid.  Unlike the kernel
+    it gathers the (B, M, d) candidate block, so callers bound M.
+    """
+    REF_CALLS["fused_gather_topk"] += 1
+    valid = ids >= 0
+    cand = db[ids.clamp(0, db.shape[0] - 1).long()].float()     # (B, M, d)
+    scores = METRICS[metric](q.float()[:, None, :], cand)
+    scores = torch.where(valid, scores, POS_INF)
+    d, pos = topk_smallest(scores, k)
+    i = torch.gather(ids, 1, pos.clamp_min(0))
+    return d, torch.where(torch.isinf(d), -1, i)
+
+
+def descend(project: Callable[[torch.Tensor], torch.Tensor],
+            thresh: torch.Tensor, child_base: torch.Tensor, n_queries: int,
+            max_depth: int, n_probes: int) -> torch.Tensor:
+    """Batched forest descent, single- or multi-probe, for any projection.
+
+    ``project(node)`` maps node ids (L, B, A) to the queries' projections
+    (L, B, A) under those nodes' tests.  Probe 0 is the primary leaf; each
+    alternate re-descends with the decision flipped at the next-smallest
+    margin ``|y - thresh|`` of the primary path (ties to the shallower
+    depth); a slot is -1 once no finite margin is left, including the
+    slots past ``max_depth + 1``.  Returns (L, B) int32 for
+    ``n_probes == 1``, else (L, B, n_probes).
+    """
+    n_trees = thresh.shape[0]
+    l_idx = torch.arange(n_trees, device=thresh.device).view(-1, 1, 1)
+    n_alt = max(0, min(n_probes - 1, max_depth))
+
+    def level(node, flip):
+        y = project(node)
+        th = thresh[l_idx, node]
+        cb = child_base[l_idx, node].long()
+        internal = cb >= 0
+        go_right = y >= th
+        if flip is not None:
+            go_right = go_right ^ flip
+        return torch.where(internal, cb + go_right.long(), node), internal, \
+            y, th
+
+    node = torch.zeros((n_trees, n_queries, 1), dtype=torch.long,
+                       device=thresh.device)
+    margins = []
+    for _ in range(max_depth):
+        node, internal, y, th = level(node, None)
+        margins.append(torch.where(internal, torch.abs(y - th), POS_INF))
+    probes = [node]
+    if n_alt:
+        margins = torch.cat(margins, dim=-1)                # (L, B, depth)
+        best, flip_depth = topk_smallest(margins, n_alt)    # (L, B, n_alt)
+        alt = torch.zeros_like(flip_depth)
+        for t in range(max_depth):
+            alt = level(alt, flip_depth == t)[0]
+        probes.append(torch.where(torch.isfinite(best), alt, -1))
+    out = torch.cat(probes, dim=-1)
+    if out.shape[-1] < n_probes:
+        out = torch.nn.functional.pad(out, (0, n_probes - out.shape[-1]),
+                                      value=-1)
+    out = out.int()
+    return out[..., 0] if n_probes == 1 else out
+
+
+def forest_traverse_ref(feat: torch.Tensor, thresh: torch.Tensor,
+                        child_base: torch.Tensor, queries: torch.Tensor,
+                        max_depth: int, n_probes: int = 1) -> torch.Tensor:
+    """Plain version of ``kernels.forest_traverse_hbm.forest_traverse_hbm``.
+
+    The forest-level twin of the reference's single-tree
+    ``forest_traverse_ref`` / ``forest_traverse_multiprobe_ref`` (a single
+    tree is L = 1): K = 1 trees, feat / thresh / child_base (L, max_nodes),
+    queries (B, d) -> leaf ids (L, B), or (L, B, n_probes) with -1 for
+    absent probes.  The test is the raw coordinate, ``q[b, feat] >= thresh``.
+    """
+    REF_CALLS["forest_traverse"] += 1
+    l_idx = torch.arange(feat.shape[0], device=feat.device).view(-1, 1, 1)
+    b_idx = torch.arange(queries.shape[0], device=feat.device).view(1, -1, 1)
+
+    def project(node):
+        return queries[b_idx, feat[l_idx, node].long()]
+
+    return descend(project, thresh, child_base, queries.shape[0], max_depth,
+                   n_probes)

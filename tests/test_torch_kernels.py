@@ -1,0 +1,193 @@
+"""The port's plain kernel versions held against the reference's kernels.
+
+``repro_torch.kernels.ref`` is what the CUDA kernels are compared with on
+the card, so here it is held against ``repro.kernels.ref`` (and, in one tiny
+case each, the Pallas kernels in interpret mode) on the same numpy inputs.
+
+Tolerances: leaf ids are exactly equal (the descent is gathers and compares
+only).  Distances agree within rtol 1e-5 / atol 1e-6 because XLA and
+PyTorch sum the d terms in different orders (and cosine takes the norm
+through different primitives); ids are equal on tie-free data.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.common import LAUNCHES, REF_CALLS, topk_smallest
+from repro_torch.kernels.forest_traverse_hbm import forest_traverse_hbm
+from repro_torch.kernels.fused_query import fused_gather_topk
+
+RTOL, ATOL = 1e-5, 1e-6
+METRICS = ("l2", "dot", "chi2", "cosine")
+
+
+def _fused_inputs(b, m, n, d, holes, seed, nonneg=False):
+    rng = np.random.default_rng(seed)
+    db = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    if nonneg:
+        db, q = np.abs(db), np.abs(q)
+    ids = rng.integers(0, n, size=(b, m)).astype(np.int32)
+    ids[rng.uniform(size=(b, m)) < holes] = -1
+    ids[0, 2:] = -1                  # row 0: fewer valid slots than k
+    return q, ids, db
+
+
+def _assert_topk(got, want):
+    gd, gi = (t.numpy() for t in got)
+    wd, wi = (np.asarray(a) for a in want)
+    np.testing.assert_allclose(gd, wd, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(gi, wi)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b,m,k", [(11, 70, 6), (1, 33, 1), (9, 40, 40)])
+def test_fused_gather_topk_ref_matches_reference(metric, b, m, k):
+    """Odd B (not a multiple of the reference's 8-row tile), -1 slots, k
+    above the valid count of row 0 (+inf / -1 tail), k == M."""
+    q, ids, db = _fused_inputs(b, m, 300, 24, 0.3, seed=b * m + k,
+                               nonneg=metric == "chi2")
+    got = tref.fused_gather_topk_ref(torch.from_numpy(q),
+                                     torch.from_numpy(ids),
+                                     torch.from_numpy(db), k, metric)
+    want = jref.fused_gather_topk_ref(jnp.asarray(q), jnp.asarray(ids),
+                                      jnp.asarray(db), k, metric)
+    _assert_topk(got, want)
+    assert np.isinf(got[0].numpy()[0, 2:]).all()
+    assert (got[1].numpy()[0, 2:] == -1).all()
+
+
+def test_fused_gather_topk_ref_at_full_width():
+    """d = 784, the MNIST width."""
+    q, ids, db = _fused_inputs(5, 96, 400, 784, 0.2, seed=7)
+    got = tref.fused_gather_topk_ref(torch.from_numpy(q),
+                                     torch.from_numpy(ids),
+                                     torch.from_numpy(db), 10)
+    want = jref.fused_gather_topk_ref(jnp.asarray(q), jnp.asarray(ids),
+                                      jnp.asarray(db), 10)
+    _assert_topk(got, want)
+
+
+def test_fused_gather_topk_ties_keep_earliest_slot():
+    """Duplicate rows score equal: both packages keep the earliest slot."""
+    rng = np.random.default_rng(3)
+    db = rng.normal(size=(6, 8)).astype(np.float32)
+    db = np.concatenate([db, db])                     # row i == row i + 6
+    q = rng.normal(size=(4, 8)).astype(np.float32)
+    ids = np.tile(np.array([9, 3, 0, 6, 11, 5, 2, 8], np.int32), (4, 1))
+    got = tref.fused_gather_topk_ref(torch.from_numpy(q),
+                                     torch.from_numpy(ids),
+                                     torch.from_numpy(db), 8)
+    want = jref.fused_gather_topk_ref(jnp.asarray(q), jnp.asarray(ids),
+                                      jnp.asarray(db), 8)
+    _assert_topk(got, want)
+
+
+def test_fused_gather_topk_pallas_interpret_case():
+    from repro.kernels.fused_query import fused_gather_topk as pallas_fused
+    q, ids, db = _fused_inputs(3, 40, 60, 8, 0.25, seed=5)
+    want = pallas_fused(jnp.asarray(q), jnp.asarray(ids), jnp.asarray(db), 5,
+                        metric="l2", interpret=True)
+    got = fused_gather_topk(torch.from_numpy(q), torch.from_numpy(ids),
+                            torch.from_numpy(db), 5, "l2")
+    _assert_topk(got, want)
+
+
+def test_wrappers_take_the_plain_version_on_cpu_tensors():
+    q, ids, db = _fused_inputs(2, 10, 20, 4, 0.0, seed=1)
+    feat, thresh, child = _random_trees(2, 15, 4, seed=1)
+    LAUNCHES.clear()
+    REF_CALLS.clear()
+    fused_gather_topk(torch.from_numpy(q), torch.from_numpy(ids),
+                      torch.from_numpy(db), 3)
+    forest_traverse_hbm(feat, thresh, child, torch.from_numpy(q), 4, 2)
+    assert REF_CALLS == {"fused_gather_topk": 1, "forest_traverse": 1}
+    assert not LAUNCHES
+
+
+def test_topk_smallest_pads_past_m():
+    vals, pos = topk_smallest(torch.tensor([[3.0, 1.0]]), 4)
+    assert vals.tolist() == [[1.0, 3.0, float("inf"), float("inf")]]
+    assert pos.tolist() == [[1, 0, -1, -1]]
+
+
+# ---------------------------------------------------------------------------
+# descent
+# ---------------------------------------------------------------------------
+
+
+def _random_trees(n_trees, n_nodes, d, seed):
+    """K = 1 trees in heap layout (children 2i+1, 2i+2) with random early
+    leaves and random thresholds: (feat, thresh, child_base) tensors."""
+    rng = np.random.default_rng(seed)
+    feat = rng.integers(0, d, size=(n_trees, n_nodes)).astype(np.int32)
+    thresh = rng.normal(size=(n_trees, n_nodes)).astype(np.float32)
+    i = np.arange(n_nodes)
+    child = np.where(2 * i + 2 < n_nodes, 2 * i + 1, -1)
+    child = np.tile(child, (n_trees, 1)).astype(np.int32)
+    child[rng.uniform(size=child.shape) < 0.15] = -1
+    return (torch.from_numpy(feat), torch.from_numpy(thresh),
+            torch.from_numpy(child))
+
+
+def _jax_traverse(feat, thresh, child, q, max_depth, n_probes):
+    out = []
+    for t in range(feat.shape[0]):
+        args = (jnp.asarray(feat[t].numpy()), jnp.asarray(thresh[t].numpy()),
+                jnp.asarray(child[t].numpy()), jnp.asarray(q), max_depth)
+        if n_probes == 1:
+            out.append(np.asarray(jref.forest_traverse_ref(*args)))
+        else:
+            out.append(np.asarray(jref.forest_traverse_multiprobe_ref(
+                *args, n_probes)))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("n_probes", [1, 3, 9])
+def test_forest_traverse_ref_matches_reference(n_probes):
+    """n_probes 9 > max_depth + 1: the tail slots are -1 in both."""
+    max_depth = 6
+    feat, thresh, child = _random_trees(3, 127, 10, seed=n_probes)
+    q = np.random.default_rng(n_probes).normal(size=(13, 10)
+                                               ).astype(np.float32)
+    got = tref.forest_traverse_ref(feat, thresh, child, torch.from_numpy(q),
+                                   max_depth, n_probes)
+    want = _jax_traverse(feat, thresh, child, q, max_depth, n_probes)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int32
+
+
+def test_forest_traverse_pallas_interpret_case():
+    from repro.kernels.forest_traverse_hbm import forest_traverse_hbm as pallas
+    feat, thresh, child = _random_trees(2, 15, 6, seed=11)
+    q = np.random.default_rng(11).normal(size=(5, 6)).astype(np.float32)
+    want = pallas(jnp.asarray(feat.numpy()), jnp.asarray(thresh.numpy()),
+                  jnp.asarray(child.numpy()), jnp.asarray(q), 4,
+                  interpret=True, n_probes=3)
+    got = forest_traverse_hbm(feat, thresh, child, torch.from_numpy(q), 4, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# mode policy
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["kernel", "pallas"])
+def test_kernel_mode_on_cpu_tensors_raises(mode):
+    q, ids, db = _fused_inputs(2, 10, 20, 4, 0.0, seed=2)
+    feat, thresh, child = _random_trees(2, 15, 4, seed=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_rerank(torch.from_numpy(q), torch.from_numpy(ids),
+                         torch.from_numpy(db), 3, mode=mode)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.traverse(feat, thresh, child, torch.from_numpy(q), 4, mode=mode)
+
+
+def test_unknown_mode_raises():
+    with pytest.raises(ValueError, match="mode"):
+        ops.canonical_mode("fast")
