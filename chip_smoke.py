@@ -1,40 +1,57 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py          # from the repository root, one CUDA GPU
 
-The main path is the paper's query on the ``rpf`` backend at the paper's own
-MNIST-784 configuration (N = 60,000 rows, d = 784, L = 80 trees, C = 12,
-r = 0.3): ``build_index`` on ``cuda`` and ``Index.search`` for batches of 1,
-7 and 1024 queries at k = 10 with 1 and 4 probes per tree.  Phases, each
-printing one JSON line:
+Four paths, each driven through the entry points a user calls, with every
+kernel launch and plain-version call counted from zero just before it and
+read just after (every kernel of the path must have launched, no plain
+version may have run):
+
+  main     the paper's query on the ``rpf`` backend at the paper's own
+           MNIST-784 configuration (N = 60,000, d = 784, L = 80, C = 12,
+           r = 0.3): ``build_index`` on ``cuda`` and ``Index.search`` for
+           batches of 1, 7 and 1024 at k = 10 with 1 and 4 probes per tree
+           (kernels A and B)
+  int8     the same on ``rpf+int8`` with expand 4 (kernels A, C and B)
+  brute    ``ops.topk`` l2 and dot on MNIST-784 (kernel D), the
+           ``bruteforce`` backend on MNIST-784 (kernel B at M = N), and
+           ``ops.topk`` chi2 on ISS-595 at full size (kernel E); B = 1024
+  iss595   ``build_index`` on ``iss_like`` at the paper's ISS-595
+           configuration (N = 250,736, d = 595, L = 160, chi2) and 1024
+           queries at 1 and 4 probes (kernels A and B at d = 595)
+
+Phases, each printing one JSON line:
 
   card     the card's name and power limit (``nvidia-smi``)
   build    nvcc builds every kernel from ``src/repro_torch/csrc``
-  main     the main path, with every launch and plain-version call counted
-           from zero: both kernels must have launched, no plain version run
-  compare  the same searches under ``mode="ref"``: distances within rtol
-           1e-5 / atol 1e-6 (the kernel sums the 784 terms in another order
-           and, for cosine, divides by the norms instead of normalizing
-           first), ids equal at every rank whose distance is separated from
-           its neighbours by more than that, and every returned id scores
-           its returned distance
-  kernels  each kernel against its plain version on the same inputs at the
-           main path's shapes and at edge shapes: the descent bitwise, the
-           fused rerank by the rule above, all four metrics
-  timing   ms per 1024-query batch (CUDA events, median of 25 after
-           warm-up), QPS, recall@1 / @10 against exact k-NN; recall with 4
-           probes must not fall below 1 probe (a superset of candidates,
-           reranked exactly)
+  <path>   each path above and its launch counts
+  compare  each path's searches against the plain path (``mode="ref"``, or
+           the plain versions in 128-query slabs): distances within rtol
+           1e-5 / atol 1e-6 (the kernels sum the d terms in another order
+           and, for cosine, divide by the norms instead of normalizing
+           first) -- for kernel D's l2 / dot within 1e-5 (|q|^2 + |c|^2) +
+           1e-6, since the expansion cancels near 0 -- ids equal at every
+           rank whose distance is separated from its neighbours by more
+           than that, and every returned id scores its returned distance
+  kernels  each kernel against its plain version at the paths' shapes and
+           at edge shapes: the descent bitwise, the others by the rule above
+  timing   ms per 1024-query batch (CUDA events, median after warm-up),
+           QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
+           E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
+           fall below 1 probe (a superset of candidates, reranked exactly)
   profile  device time per search by kernel and the device's idle share
            (``torch.profiler`` over 5 searches of 1024 queries)
+  done     the script's wall time
 
 then the kernels line (each kernel's launches, time, plain time and bound)
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the script exits non-zero without that line.
 """
+import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -42,10 +59,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K = 10
+EXPAND = 4
 BATCHES = (1, 7, 1024)
 PROBES = (1, 4)
 RTOL, ATOL = 1e-5, 1e-6
+SLAB = 128                  # queries per slab of a plain version's run
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
+# fp32 instruction issues per chi2 term in kernel E: x - y, x + y, + eps,
+# t * t, the IEEE division's fast path (reciprocal, check, five FMAs) and
+# the accumulate, as its SASS shows (``sass_per_chi2_term``); an SM issues
+# 128 fp32 lanes a cycle (FP32_FLOPS / 2)
+CHI2_ISSUES = 12
 # device memory rate by card (NVIDIA data sheets); SXM is the default
 MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 
@@ -66,17 +90,19 @@ def mem_rate(name):
     return 3.35e12
 
 
-def compare_topk(torch, got, want, k):
+def compare_topk(torch, got, want, k, tol=None):
     """Kernel (or kernel-path) top-k ``got`` against plain ``want``, where
     ``want`` holds k + 1 columns so the last rank's lower neighbour is
-    known.  Returns the largest absolute distance error."""
+    known; ``tol`` (B, k + 1) defaults to rtol / atol of ``want``'s
+    distances.  Returns the largest absolute distance error."""
     gd, gi = got
     wd_ext, wi_ext = want
     wd, wi = wd_ext[:, :k], wi_ext[:, :k]
     finite = torch.isfinite(wd)
     check(torch.equal(finite, torch.isfinite(gd)), "inf pattern differs")
     check(bool((gi[~finite] == -1).all()), "id of an inf slot is not -1")
-    tol = RTOL * wd_ext.abs() + ATOL
+    if tol is None:
+        tol = RTOL * wd_ext.abs() + ATOL
     err = (gd - wd).abs()[finite]
     check(bool((err <= tol[:, :k][finite]).all()),
           f"distance error {float(err.max()) if err.numel() else 0.0}")
@@ -98,10 +124,71 @@ def check_scores(torch, metrics_fn, q, db, got):
           "a returned id does not score its returned distance")
 
 
-def time_ms(torch, fn, reps, flush=None):
-    """Median device time of ``fn()`` over ``reps`` runs after two warm-up
-    runs; ``flush()`` (outside the timed region) evicts the L2 cache."""
-    for _ in range(2):
+def expansion_tol(torch, q, db, ids):
+    """The l2 / dot expansion's tolerance at (B, k) result ids: 1e-5
+    (|q|^2 + |c|^2) + 1e-6 (+inf where the id is -1)."""
+    q_sq = torch.sum(q * q, dim=1)[:, None]
+    c_sq = torch.sum(db * db, dim=1)[ids.clamp_min(0).long()]
+    return torch.where(ids >= 0, 1e-5 * (q_sq + c_sq) + 1e-6, float("inf"))
+
+
+def in_slabs(torch, fn, b, size=SLAB):
+    """``fn(lo, hi)`` over query slabs, outputs concatenated: a plain
+    version run slab by slab is the same function with its gathered block
+    kept small."""
+    parts = [fn(lo, min(b, lo + size)) for lo in range(0, b, size)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def counted(torch, counters, fn):
+    """Run ``fn`` with every counter set to zero just before and read just
+    after: (fn(), launches, plain-version calls)."""
+    for c in counters:
+        c.clear()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out,) + tuple(dict(c) for c in counters)
+
+
+def require(launches, ref_calls, names, path):
+    for name in names:
+        check(launches.get(name, 0) > 0, f"{name} never launched on {path}")
+    check(sum(ref_calls.values()) == 0,
+          f"plain versions ran on {path}: {ref_calls}")
+
+
+def sass_per_chi2_term(path):
+    """Kernel E's fp32-pipe instructions (FADD, FMUL, FFMA, FCHK,
+    MUFU.RCP) per chi2 term as compiled: counted in the SASS of
+    ``scan_topk_kernel<2>`` up to the IEEE division's slow-path subroutine,
+    per FCHK (one per term).  None where the toolkit has no
+    ``cuobjdump``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    body = sass.split("Function : _Z16scan_topk_kernelILi2E")[1]
+    body = body.split("Function :")[0]
+    code = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9.]+)([^;]*);",
+        body)]
+    calls = [int(t, 16) for _, op, rest in code if op.startswith("CALL")
+             for t in re.findall(r"0x([0-9a-f]+)", rest)]
+    main = [op for a, op, _ in code if not calls or a < min(calls)]
+    n = collections.Counter(op.split(".")[0] for op in main)
+    fp32 = n["FADD"] + n["FMUL"] + n["FFMA"] + n["FCHK"] \
+        + sum(op == "MUFU.RCP" for op in main)
+    return fp32 / n["FCHK"]
+
+
+def time_ms(torch, fn, reps, flush=None, warm=2):
+    """Median device time of ``fn()`` over ``reps`` runs after ``warm``
+    warm-up runs; ``flush()`` (outside the timed region) evicts the L2
+    cache."""
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -136,26 +223,34 @@ def node_depths(torch, child_base, max_depth):
 
 
 def main():
+    wall0 = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; none is available")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import rpf_iss595 as isscfg
     from repro_torch.configs import rpf_mnist784 as cfgmod
     from repro_torch.core.distances import METRICS
     from repro_torch.core.knn import exact_knn
     from repro_torch.core.pipeline import candidates
+    from repro_torch.core.quantized import quantize_db
     from repro_torch.core.search import mask_duplicates, recall_at_k
-    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.data.synthetic import iss_like, mnist_like
     from repro_torch.index import IndexSpec, SearchParams, build_index
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.chi2_topk import chi2_topk
     from repro_torch.kernels.common import LAUNCHES, REF_CALLS
     from repro_torch.kernels.forest_traverse_hbm import forest_traverse_hbm
     from repro_torch.kernels.fused_query import fused_gather_topk
+    from repro_torch.kernels.fused_query_int8 import fused_gather_topk_int8
+    from repro_torch.kernels.matmul_topk import matmul_topk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
+    counters = (LAUNCHES, REF_CALLS)
+    launches_by_path = {}
 
     # ---- card ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -174,30 +269,27 @@ def main():
     emit({"phase": "build", "seconds": build_s, "built": sorted(logs),
           "ptxas": regs})
 
-    # ---- main path ---------------------------------------------------------
+    # ---- main path: rpf ------------------------------------------------------
     db_np, _, q_np, _ = mnist_like(cfgmod.N_DB, n_test=cfgmod.QUERY_BATCH,
                                    d=cfgmod.DIM, seed=0)
     spec = IndexSpec(backend="rpf", forest=cfgmod.CONFIG, seed=0)
     queries = torch.from_numpy(q_np).to(dev)
-    LAUNCHES.clear()
-    REF_CALLS.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index = build_index(db_np, spec, device=dev)
-    torch.cuda.synchronize()
-    index_build_s = time.perf_counter() - t0
-    results = {}
-    n_searches = 0
-    for p in PROBES:
-        for b in BATCHES:
-            results[p, b] = index.search(queries[:b],
-                                         SearchParams(k=K, n_probes=p))
-            n_searches += 1
-    torch.cuda.synchronize()
-    launches, ref_calls = dict(LAUNCHES), dict(REF_CALLS)
-    for name in ("forest_traverse", "fused_gather_topk"):
-        check(launches.get(name, 0) > 0, f"{name} never launched")
-    check(sum(ref_calls.values()) == 0, f"plain versions ran: {ref_calls}")
+
+    def drive_rpf():
+        t0 = time.perf_counter()
+        index = build_index(db_np, spec, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        return index, build_s, {
+            (p, b): index.search(queries[:b], SearchParams(k=K, n_probes=p))
+            for p in PROBES for b in BATCHES}
+
+    (index, index_build_s, results), launches, ref_calls = counted(
+        torch, counters, drive_rpf)
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk"),
+            "rpf")
+    launches_by_path["rpf"] = launches
+    n_searches = len(results)
     db = index.engine.db
     forest = index.forest
     rc = spec.forest.resolved(db.shape[0])
@@ -207,14 +299,140 @@ def main():
           "index_build_s": index_build_s, "searches": n_searches,
           "launches": launches, "ref_calls": ref_calls})
 
-    # ---- compare with the plain path ---------------------------------------
     worst = 0.0
     for (p, b), got in results.items():
         want = index.search(queries[:b], SearchParams(k=K + 1, n_probes=p,
                                                       mode="ref"))
         worst = max(worst, compare_topk(torch, got, want, K))
         check_scores(torch, METRICS["l2"], queries[:b], db, got)
-    emit({"phase": "compare", "cases": len(results), "max_abs_err": worst})
+    emit({"phase": "compare", "path": "rpf", "cases": len(results),
+          "max_abs_err": worst})
+
+    # ---- path: rpf+int8 --------------------------------------------------------
+    spec8 = IndexSpec(backend="rpf+int8", forest=cfgmod.CONFIG, seed=0)
+
+    def drive_int8():
+        t0 = time.perf_counter()
+        index8 = build_index(db_np, spec8, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        return index8, build_s, {
+            (p, b): index8.search(queries[:b], SearchParams(
+                k=K, n_probes=p, expand=EXPAND))
+            for p in PROBES for b in BATCHES}
+
+    (index8, int8_build_s, results8), launches, ref_calls = counted(
+        torch, counters, drive_int8)
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk_int8",
+                                  "fused_gather_topk"), "rpf+int8")
+    launches_by_path["rpf+int8"] = launches
+    qdb = index8.qdb
+    emit({"phase": "int8", "index_build_s": int8_build_s,
+          "searches": len(results8), "expand": EXPAND,
+          "launches": launches, "ref_calls": ref_calls})
+
+    def int8_plain(q, p):
+        """The plain path of ``rerank_fused_quantized``, stage by stage,
+        with stage 2 widened to K + 1 so the last rank's lower neighbour
+        is known."""
+        ids, mask = candidates(index8.forest, q, rc.max_depth, rc.leaf_pad,
+                               p, mode="ref")
+        ids = torch.where(mask_duplicates(ids, mask), ids, -1).int()
+        kp = min(EXPAND * K, ids.shape[1])
+        _, short = ref.fused_gather_topk_int8_ref(q, ids, qdb.q, qdb.scale,
+                                                  kp)
+        return ref.fused_gather_topk_ref(q, short, qdb.fp, K + 1)
+
+    worst8 = 0.0
+    for (p, b), got in results8.items():
+        want = in_slabs(torch, lambda lo, hi: int8_plain(queries[lo:hi], p),
+                        b)
+        worst8 = max(worst8, compare_topk(torch, got, want, K))
+        check_scores(torch, METRICS["l2"], queries[:b], db, got)
+    emit({"phase": "compare", "path": "rpf+int8", "cases": len(results8),
+          "max_abs_err": worst8})
+
+    # ---- path: brute (kernel D, bruteforce backend, kernel E) --------------
+    t0 = time.perf_counter()
+    iss_np, _, iss_q_np, _ = iss_like(isscfg.N_DB, n_test=isscfg.QUERY_BATCH,
+                                      d=isscfg.DIM, n_models=isscfg.N_MODELS,
+                                      seed=1)
+    iss_data_s = time.perf_counter() - t0
+    iss_db = torch.from_numpy(iss_np).to(dev)
+    iss_q = torch.from_numpy(iss_q_np).to(dev)
+
+    def drive_brute():
+        out = {m: ops.topk(queries, db, K, m) for m in ("l2", "dot")}
+        bidx = build_index(db_np, IndexSpec(backend="bruteforce"),
+                           device=dev)
+        out["bruteforce"] = bidx.search(queries, SearchParams(k=K))
+        out["chi2"] = ops.topk(iss_q, iss_db, K, "chi2")
+        return bidx, out
+
+    (bidx, brute), launches, ref_calls = counted(torch, counters, drive_brute)
+    require(launches, ref_calls, ("matmul_topk", "fused_gather_topk",
+                                  "chi2_topk"), "brute")
+    launches_by_path["brute"] = launches
+    emit({"phase": "brute", "mnist": list(db.shape),
+          "iss595": list(iss_db.shape), "iss_data_s": iss_data_s,
+          "launches": launches, "ref_calls": ref_calls})
+
+    brute_err = {}
+    for m in ("l2", "dot"):
+        want = in_slabs(torch, lambda lo, hi: ref.matmul_topk_ref(
+            queries[lo:hi], db, K + 1, m), queries.shape[0])
+        brute_err[m] = compare_topk(
+            torch, brute[m], want, K,
+            tol=expansion_tol(torch, queries, db, want[1]))
+    want = exact_knn(queries, db, K + 1)
+    brute_err["l2_vs_exact_knn"] = compare_topk(
+        torch, brute["l2"], want, K,
+        tol=expansion_tol(torch, queries, db, want[1]))
+    want = in_slabs(torch, lambda lo, hi: bidx.search(
+        queries[lo:hi], SearchParams(k=K + 1, mode="ref")), queries.shape[0])
+    brute_err["bruteforce"] = compare_topk(torch, brute["bruteforce"], want,
+                                           K)
+    check_scores(torch, METRICS["l2"], queries, db, brute["bruteforce"])
+    want = in_slabs(torch, lambda lo, hi: ref.chi2_topk_ref(
+        iss_q[lo:hi], iss_db, K + 1), iss_q.shape[0])
+    brute_err["chi2"] = compare_topk(torch, brute["chi2"], want, K)
+    check_scores(torch, METRICS["chi2"], iss_q, iss_db, brute["chi2"])
+    emit({"phase": "compare", "path": "brute", "max_abs_err": brute_err,
+          "tolerance": {"l2, dot": "1e-5 (|q|^2 + |c|^2) + 1e-6",
+                        "bruteforce, chi2": f"rtol {RTOL}, atol {ATOL}"}})
+
+    # ---- path: ISS-595 on rpf ----------------------------------------------
+    spec_iss = IndexSpec(backend="rpf", forest=isscfg.CONFIG, seed=0)
+
+    def drive_iss():
+        t0 = time.perf_counter()
+        idx = build_index(iss_np, spec_iss, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        return idx, build_s, {p: idx.search(iss_q, SearchParams(
+            k=K, n_probes=p, metric="chi2")) for p in PROBES}
+
+    (iss_index, iss_build_s, iss_res), launches, ref_calls = counted(
+        torch, counters, drive_iss)
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk"),
+            "iss595")
+    launches_by_path["iss595"] = launches
+    iss_rc = spec_iss.forest.resolved(iss_db.shape[0])
+    emit({"phase": "iss595", "rows": iss_db.shape[0], "dim": iss_db.shape[1],
+          "trees": iss_rc.n_trees, "max_depth": iss_rc.max_depth,
+          "leaf_pad": iss_rc.leaf_pad,
+          "nodes_used_max": int(iss_index.forest.n_nodes.max()),
+          "index_build_s": iss_build_s, "launches": launches,
+          "ref_calls": ref_calls})
+    worst_iss = 0.0
+    for p, got in iss_res.items():
+        want = in_slabs(torch, lambda lo, hi: iss_index.search(
+            iss_q[lo:hi], SearchParams(k=K + 1, n_probes=p, metric="chi2",
+                                       mode="ref")), iss_q.shape[0])
+        worst_iss = max(worst_iss, compare_topk(torch, got, want, K))
+        check_scores(torch, METRICS["chi2"], iss_q, iss_db, got)
+    emit({"phase": "compare", "path": "iss595", "cases": len(iss_res),
+          "max_abs_err": worst_iss})
 
     # ---- kernels against their plain versions ------------------------------
     feat = forest.proj_idx[..., 0]
@@ -235,10 +453,12 @@ def main():
           "descent differs with P > max_depth + 1")
     trav_cases += 1
 
-    cand = {}
-    for p in PROBES:
-        ids, mask = candidates(forest, queries, rc.max_depth, rc.leaf_pad, p)
-        cand[p] = torch.where(mask_duplicates(ids, mask), ids, -1).int()
+    def dedup_cand(frst, q, cfg, p):
+        ids, mask = candidates(frst, q, cfg.max_depth, cfg.leaf_pad, p)
+        return torch.where(mask_duplicates(ids, mask), ids, -1).int()
+
+    cand = {p: dedup_cand(forest, queries, rc, p) for p in PROBES}
+    iss_cand = dedup_cand(iss_index.forest, iss_q, iss_rc, 1)
     gen = torch.Generator(device=dev).manual_seed(1)
     holes = cand[1].clone()
     holes[torch.rand(holes.shape, generator=gen, device=dev) < 0.3] = -1
@@ -250,18 +470,63 @@ def main():
             q = queries[:ids.shape[0]].contiguous()
             ids = ids.contiguous()
             got = fused_gather_topk(q, ids, db, k, metric)
-            # rows are independent: the plain version in 128-row slabs is
-            # the same function, with its (B, M, d) gather kept small
-            want = [ref.fused_gather_topk_ref(q[i:i + 128], ids[i:i + 128],
-                                              db, k + 1, metric)
-                    for i in range(0, q.shape[0], 128)]
-            want = tuple(torch.cat(w) for w in zip(*want))
+            want = in_slabs(torch, lambda lo, hi: ref.fused_gather_topk_ref(
+                q[lo:hi], ids[lo:hi], db, k + 1, metric), q.shape[0])
             fused_err = max(fused_err, compare_topk(torch, got, want, k))
             fused_cases += 1
+
+    # kernel C: the int8 path's shapes (k' = 40 over M = 960 / 3840), one
+    # and seven queries, 30% holes, k' = 512, d = 784 and 595, four metrics
+    iss_qdb = quantize_db(iss_db)
+    kp = EXPAND * K
+    c_shapes = [(queries, qdb, cand[1], kp), (queries, qdb, cand[4], kp),
+                (queries, qdb, cand[1][:1], kp), (queries, qdb, cand[1][:7], kp),
+                (queries, qdb, holes[:7], kp), (queries, qdb, cand[4][:7], 512),
+                (iss_q, iss_qdb, iss_cand[:7], kp),
+                (iss_q, iss_qdb, iss_cand[:7], 512)]
+    int8_cases, int8_err = 0, 0.0
+    for metric in ("l2", "dot", "chi2", "cosine"):
+        for qq, qd, ids, k in c_shapes:
+            q = qq[:ids.shape[0]].contiguous()
+            ids = ids.contiguous()
+            got = fused_gather_topk_int8(q, ids, qd.q, qd.scale, k, metric)
+            want = in_slabs(torch, lambda lo, hi: ref.fused_gather_topk_int8_ref(
+                q[lo:hi], ids[lo:hi], qd.q, qd.scale, k + 1, metric),
+                q.shape[0])
+            int8_err = max(int8_err, compare_topk(torch, got, want, k))
+            int8_cases += 1
+
+    # kernels D and E: one and seven queries, k = 128, k > N (every slot
+    # past N is +inf / -1), d = 784 and 595
+    scan_cases, d_err, e_err = 0, 0.0, 0.0
+    mnist_small, iss_small = db[:5].contiguous(), iss_db[:5].contiguous()
+    for b, rows_l2, rows_chi2, k in [
+            (1, db, iss_db, K), (7, db, iss_db, K), (7, db, iss_db, 128),
+            (7, iss_db, db, K), (7, mnist_small, iss_small, K)]:
+        for m in ("l2", "dot"):
+            q = (queries if rows_l2.shape[1] == queries.shape[1]
+                 else iss_q)[:b].contiguous()
+            got = matmul_topk(q, rows_l2, k, m)
+            want = ref.matmul_topk_ref(q, rows_l2, k + 1, m)
+            d_err = max(d_err, compare_topk(
+                torch, got, want, k,
+                tol=expansion_tol(torch, q, rows_l2, want[1])))
+            scan_cases += 1
+        q = (iss_q if rows_chi2.shape[1] == iss_q.shape[1]
+             else queries)[:b].contiguous()
+        got = chi2_topk(q, rows_chi2, k)
+        want = ref.chi2_topk_ref(q, rows_chi2, k + 1)
+        e_err = max(e_err, compare_topk(torch, got, want, k))
+        if rows_chi2.shape[0] < k:
+            check(bool((got[1][:, rows_chi2.shape[0]:] == -1).all()),
+                  "slots past N are not -1")
+        scan_cases += 1
     torch.cuda.synchronize()
     emit({"phase": "kernels", "descent_cases": trav_cases,
           "descent_bitwise": True, "fused_cases": fused_cases,
-          "fused_max_abs_err": fused_err})
+          "fused_max_abs_err": fused_err, "int8_cases": int8_cases,
+          "int8_max_abs_err": int8_err, "scan_cases": scan_cases,
+          "matmul_max_abs_err": d_err, "chi2_max_abs_err": e_err})
 
     # ---- timing, recall ----------------------------------------------------
     rate = mem_rate(card)
@@ -271,32 +536,56 @@ def main():
         flush_buf.zero_()
 
     _, true_i = exact_knn(queries, db, K)
-    cell = {}
+    cells = {}
+    for name, idx, res in (("rpf", index, results),
+                           ("rpf+int8", index8, results8)):
+        cell = {}
+        for p in PROBES:
+            params = SearchParams(k=K, n_probes=p, expand=EXPAND)
+            ms = time_ms(torch, lambda: idx.search(queries, params), 25)
+            _, ids = res[p, cfgmod.QUERY_BATCH]
+            cell[p] = {"ms_per_batch": ms,
+                       "qps": cfgmod.QUERY_BATCH / ms * 1e3,
+                       "recall_at_1": recall_at_k(ids[:, :1], true_i[:, :1]),
+                       "recall_at_10": recall_at_k(ids, true_i)}
+        check(cell[4]["recall_at_1"] >= cell[1]["recall_at_1"]
+              and cell[4]["recall_at_10"] >= cell[1]["recall_at_10"],
+              f"recall fell with more probes on {name}: {cell}")
+        cells[name] = cell
+    emit({"phase": "timing", "cell": "rpf_mnist784", "batch":
+          cfgmod.QUERY_BATCH, "k": K, "card": smi, "n_probes": cells["rpf"]})
+    emit({"phase": "timing", "cell": "rpf_mnist784 / rpf+int8",
+          "batch": cfgmod.QUERY_BATCH, "k": K, "expand": EXPAND, "card": smi,
+          "n_probes": cells["rpf+int8"]})
+
+    e_ms = time_ms(torch, lambda: chi2_topk(iss_q, iss_db, K), 3, warm=1)
+    _, exact_iss = brute["chi2"]
+    iss_cell = {}
     for p in PROBES:
-        params = SearchParams(k=K, n_probes=p)
-        ms = time_ms(torch, lambda: index.search(queries, params), 25)
-        _, ids = results[p, cfgmod.QUERY_BATCH]
-        cell[p] = {"ms_per_batch": ms, "qps": cfgmod.QUERY_BATCH / ms * 1e3,
-                   "recall_at_1": recall_at_k(ids[:, :1], true_i[:, :1]),
-                   "recall_at_10": recall_at_k(ids, true_i)}
-    check(cell[4]["recall_at_1"] >= cell[1]["recall_at_1"]
-          and cell[4]["recall_at_10"] >= cell[1]["recall_at_10"],
-          f"recall fell with more probes: {cell}")
-    emit({"phase": "timing", "batch": cfgmod.QUERY_BATCH, "k": K,
-          "card": smi, "n_probes": cell})
+        params = SearchParams(k=K, n_probes=p, metric="chi2")
+        ms = time_ms(torch, lambda: iss_index.search(iss_q, params), 10)
+        iss_cell[p] = {"ms_per_batch": ms,
+                       "qps": isscfg.QUERY_BATCH / ms * 1e3,
+                       "recall_at_1": recall_at_k(iss_res[p][1][:, :1],
+                                                  exact_iss[:, :1]),
+                       "exact_scan_over_search": e_ms / ms}
+    check(iss_cell[4]["recall_at_1"] >= iss_cell[1]["recall_at_1"],
+          f"recall fell with more probes on iss595: {iss_cell}")
+    emit({"phase": "timing", "cell": "rpf_iss595", "batch":
+          isscfg.QUERY_BATCH, "k": K, "card": smi, "exact_scan_ms": e_ms,
+          "n_probes": iss_cell})
 
     # ---- where the time goes: device time by kernel over 5 searches -------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    breakdown = {}
-    for p in PROBES:
-        params = SearchParams(k=K, n_probes=p)
+
+    def breakdown(idx, q, params):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(5):
-                index.search(queries, params)
+                idx.search(q, params)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_name, n_events = {}, 0
@@ -308,13 +597,20 @@ def main():
                     + e.time_range.elapsed_us() / 1e3
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        breakdown[p] = {"wall_ms_per_search": wall_ms / 5,
-                        "device_ms_per_search": busy / 5,
-                        "device_idle_share": 1 - busy / wall_ms,
-                        "device_events": n_events,
-                        "kernels_ms_per_search": {n: t / 5 for n, t in top}}
-    emit({"phase": "profile", "batch": cfgmod.QUERY_BATCH, "card": smi,
-          "n_probes": breakdown})
+        return {"wall_ms_per_search": wall_ms / 5,
+                "device_ms_per_search": busy / 5,
+                "device_idle_share": 1 - busy / wall_ms,
+                "device_events": n_events,
+                "kernels_ms_per_search": {n: t / 5 for n, t in top}}
+
+    for cell, idx, q, kw in (
+            ("rpf_mnist784", index, queries, {}),
+            ("rpf_mnist784 / rpf+int8", index8, queries, {"expand": EXPAND}),
+            ("rpf_iss595", iss_index, iss_q, {"metric": "chi2"})):
+        emit({"phase": "profile", "cell": cell, "batch": q.shape[0],
+              "card": smi, "n_probes": {p: breakdown(
+                  idx, q, SearchParams(k=K, n_probes=p, **kw))
+                  for p in PROBES}})
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output
@@ -353,34 +649,124 @@ def main():
     t_long, t_short = (time_ms(torch, lambda n=n: forest_traverse_hbm(
         c_feat, c_thresh, c_child, q_chain, n), 25, flush) for n in (hops, 1))
     per_level_us = (t_long - t_short) * 1e3 / (hops - 1)
+    del c_feat, c_thresh, c_child
+
+    def bound(nbytes, ops, op_rate=FP32_FLOPS):
+        by_bytes, by_ops = nbytes / rate, ops / op_rate
+        return {"bound_ms": max(by_bytes, by_ops) * 1e3, "bytes": nbytes,
+                "operations": ops,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
     # fused rerank: each valid slot reads its row once; ids, q, output once
+    # (l2: 3 operations per element; chi2: CHI2_ISSUES issues per term)
     fused_rows = []
+    iss_cand4 = dedup_cand(iss_index.forest, iss_q, iss_rc, 4)
+    for cell, metric, q, rows, ids in (
+            ("rpf_mnist784", "l2", queries, db, cand[1]),
+            ("rpf_mnist784", "l2", queries, db, cand[4]),
+            ("rpf_iss595", "chi2", iss_q, iss_db, iss_cand),
+            ("rpf_iss595", "chi2", iss_q, iss_db, iss_cand4)):
+        ids = ids.contiguous()
+        valid = int((ids >= 0).sum())
+        b, m = ids.shape
+        d = rows.shape[1]
+        nbytes = valid * d * 4 + b * m * 4 + q.numel() * 4 + b * K * 8
+        ops_ = ((3 * valid * d, FP32_FLOPS) if metric == "l2" else
+                (CHI2_ISSUES * valid * d, FP32_FLOPS / 2))
+        fused_rows.append({
+            "cell": cell, "metric": metric, "m": m, "valid_slots": valid,
+            "ms": time_ms(torch, lambda: fused_gather_topk(
+                q, ids, rows, K, metric), 25, flush),
+            "plain_ms": time_ms(torch, lambda: in_slabs(
+                torch, lambda lo, hi: ref.fused_gather_topk_ref(
+                    q[lo:hi], ids[lo:hi], rows, K, metric), b, 256),
+                5, flush),
+            **bound(nbytes, *ops_)})
+    # the bruteforce backend: kernel B at M = N.  Its bound reads each
+    # input once; were no row reused between queries, every (query, row)
+    # pair would read the row from memory
+    bq_, bn_, bd_ = queries.shape[0], db.shape[0], db.shape[1]
+    brute_row = {
+        "search_ms": time_ms(torch, lambda: bidx.search(
+            queries, SearchParams(k=K)), 3, flush, warm=1),
+        "plain_ms": time_ms(torch, lambda: bidx.search(
+            queries, SearchParams(k=K, mode="ref")), 1, flush, warm=1),
+        **bound(bn_ * bd_ * 4 + bq_ * bn_ * 4 + bq_ * bd_ * 4 + bq_ * K * 8,
+                3 * bq_ * bn_ * bd_),
+        "no_reuse_ms": bq_ * bn_ * bd_ * 4 / rate * 1e3}
+
+    # int8 rerank: each valid slot reads d + 4 bytes; dequantize, subtract,
+    # multiply-add: 4 operations per element
+    int8_rows = []
     for p in PROBES:
         ids = cand[p].contiguous()
         valid = int((ids >= 0).sum())
         b, m = ids.shape
-        nbytes = valid * db.shape[1] * 4 + b * m * 4 + queries.numel() * 4 \
-            + b * K * 8
-        flops = 3 * valid * db.shape[1]
-        bound = max(nbytes / rate, flops / FP32_FLOPS) * 1e3
-        fused_rows.append({
-            "m": m, "valid_slots": valid,
-            "ms": time_ms(torch, lambda: fused_gather_topk(
-                queries, ids, db, K, "l2"), 25, flush),
-            "plain_ms": time_ms(torch, lambda: ref.fused_gather_topk_ref(
-                queries, ids, db, K, "l2"), 5, flush),
-            "bound_ms": bound, "bytes": nbytes, "flops": flops,
-            "bound_by": "bytes" if nbytes / rate >= flops / FP32_FLOPS
-            else "operations"})
+        nbytes = valid * (db.shape[1] + 4) + b * m * 4 + queries.numel() * 4 \
+            + b * kp * 8
+        int8_rows.append({
+            "m": m, "k_prime": kp, "valid_slots": valid,
+            "ms": time_ms(torch, lambda: fused_gather_topk_int8(
+                queries, ids, qdb.q, qdb.scale, kp, "l2"), 25, flush),
+            "plain_ms": time_ms(torch, lambda: in_slabs(
+                torch, lambda lo, hi: ref.fused_gather_topk_int8_ref(
+                    queries[lo:hi], ids[lo:hi], qdb.q, qdb.scale, kp, "l2"),
+                b, 256), 3, flush),
+            **bound(nbytes, 4 * valid * db.shape[1])})
 
-    per_search = {n: launches[n] / n_searches for n in launches}
-    t1, f1 = trav_rows[0], fused_rows[0]
+    # exact scans: each input read once; D does 2 B N d flops, E issues
+    # CHI2_ISSUES fp32 instructions per term
+    d_row = {
+        "ms": time_ms(torch, lambda: matmul_topk(queries, db, K, "l2"), 10,
+                      flush),
+        "dot_ms": time_ms(torch, lambda: matmul_topk(queries, db, K, "dot"),
+                          10, flush),
+        "plain_ms": time_ms(torch, lambda: ref.matmul_topk_ref(
+            queries, db, K, "l2"), 3, flush),
+        "cublas_fp32_product_ms": time_ms(torch, lambda: queries @ db.T, 10,
+                                          flush),
+        **bound((bq_ + bn_) * (bd_ + 1) * 4 + bq_ * K * 8,
+                2 * bq_ * bn_ * bd_)}
+    ib, in_, id_ = iss_q.shape[0], iss_db.shape[0], iss_db.shape[1]
+    # where q and c are both 0 the term is 0 / 1e-12, which the compiled
+    # IEEE division may send down its slow path: the share of such terms,
+    # and E's time on the same shapes with the queries raised by 1e-3 and
+    # the rows by 2e-3, so that no term's numerator is 0
+    zero_terms = float(((iss_q == 0).sum(0).double()
+                        * (iss_db == 0).sum(0).double()).sum())
+    iss_q_d, iss_db_d = iss_q + 1e-3, iss_db + 2e-3
+    dense_ms = time_ms(torch, lambda: chi2_topk(iss_q_d, iss_db_d, K), 3,
+                       warm=1)
+    del iss_q_d, iss_db_d
+    e_row = {
+        "ms": e_ms,
+        "zero_term_share": zero_terms / (ib * in_ * id_),
+        "ms_no_zero_numerator": dense_ms,
+        "sass_fp32_issues_per_term": sass_per_chi2_term(
+            build.library_path("scan_topk")),
+        "plain_ms": time_ms(torch, lambda: ref.chi2_topk_ref(
+            iss_q, iss_db, K), 1, warm=0),
+        "terms": ib * in_ * id_, "issues_per_term": CHI2_ISSUES,
+        **bound((ib + in_) * id_ * 4 + ib * K * 8,
+                CHI2_ISSUES * ib * in_ * id_, FP32_FLOPS / 2)}
+    torch.cuda.synchronize()
+    emit({"phase": "done", "wall_s": time.perf_counter() - wall0})
+
+    def total(name):
+        return sum(v.get(name, 0) for v in launches_by_path.values())
+
+    def by_path(name):
+        return {k: v[name] for k, v in launches_by_path.items() if name in v}
+
+    t1, f1, c1 = trav_rows[0], fused_rows[0], int8_rows[0]
+    per_search = {n: launches_by_path["rpf"][n] / n_searches
+                  for n in launches_by_path["rpf"]}
     emit({"kernels": [
         {"name": "forest_traverse", "route": "cuda",
          "source": "src/repro_torch/csrc/forest_traverse.cu",
          "replaces": "src/repro/kernels/forest_traverse_hbm.py:158",
-         "launches": launches["forest_traverse"],
+         "launches": total("forest_traverse"),
+         "launches_by_path": by_path("forest_traverse"),
          "launches_per_search": per_search["forest_traverse"],
          "max_abs_err": 0.0, "ms": t1["ms"], "plain_ms": t1["plain_ms"],
          "bound_ms": t1["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -390,11 +776,35 @@ def main():
         {"name": "fused_gather_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_query.cu",
          "replaces": "src/repro/kernels/fused_query.py:146",
-         "launches": launches["fused_gather_topk"],
+         "launches": total("fused_gather_topk"),
+         "launches_by_path": by_path("fused_gather_topk"),
          "launches_per_search": per_search["fused_gather_topk"],
          "max_abs_err": fused_err, "ms": f1["ms"], "plain_ms": f1["plain_ms"],
          "bound_ms": f1["bound_ms"], "bound_by": f1["bound_by"],
-         "library_ms": None, "shapes": fused_rows},
+         "library_ms": None, "shapes": fused_rows,
+         "bruteforce": brute_row},
+        {"name": "fused_gather_topk_int8", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_query_int8.cu",
+         "replaces": "src/repro/kernels/fused_query_int8.py:152",
+         "launches": total("fused_gather_topk_int8"),
+         "launches_by_path": by_path("fused_gather_topk_int8"),
+         "max_abs_err": int8_err, "ms": c1["ms"], "plain_ms": c1["plain_ms"],
+         "bound_ms": c1["bound_ms"], "bound_by": c1["bound_by"],
+         "library_ms": None, "shapes": int8_rows},
+        {"name": "matmul_topk", "route": "cuda",
+         "source": "src/repro_torch/csrc/scan_topk.cu",
+         "replaces": "src/repro/kernels/matmul_topk.py:79",
+         "launches": total("matmul_topk"),
+         "launches_by_path": by_path("matmul_topk"),
+         "max_abs_err": max(d_err, brute_err["l2"], brute_err["dot"]),
+         **d_row, "library_ms": None},
+        {"name": "chi2_topk", "route": "cuda",
+         "source": "src/repro_torch/csrc/scan_topk.cu",
+         "replaces": "src/repro/kernels/chi2_topk.py:69",
+         "launches": total("chi2_topk"),
+         "launches_by_path": by_path("chi2_topk"),
+         "max_abs_err": max(e_err, brute_err["chi2"]), **e_row,
+         "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

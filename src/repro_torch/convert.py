@@ -1,9 +1,11 @@
-"""Carry a forest built elsewhere into the port.
+"""Carry a forest (and int8 rows) built elsewhere into the port.
 
 ``forest_from_numpy`` takes the eight ``Forest`` fields of the reference
 package as numpy arrays -- for example ``jax.device_get(index.forest)`` --
 and ``index_from_numpy`` wraps them with their rows as a queryable ``rpf``
-index without building one, so both packages can query the same forest.
+or ``rpf+int8`` index without building one, so both packages can query the
+same forest.  For ``rpf+int8`` it also takes the reference's ``q8`` and
+``scale`` and checks that the port's ``quantize_db`` gives the same bits.
 """
 from __future__ import annotations
 
@@ -40,9 +42,11 @@ def forest_from_numpy(arrays: Mapping[str, Any] | Any,
 
 
 def index_from_numpy(db, forest_arrays, spec: IndexSpec,
-                     device: str | torch.device | None = None):
-    """A queryable ``rpf`` index over rows ``db`` (N, d) and a forest built
-    over exactly those rows with ``spec.forest``."""
+                     device: str | torch.device | None = None,
+                     q8=None, scale=None):
+    """A queryable ``rpf`` or ``rpf+int8`` index over rows ``db`` (N, d)
+    and a forest built over exactly those rows with ``spec.forest``;
+    ``rpf+int8`` takes the reference's ``q8`` and ``scale`` too."""
     dev = resolve_device(device)
     rows = torch.as_tensor(np.asarray(db, np.float32), device=dev)
     forest = forest_from_numpy(forest_arrays, dev)
@@ -53,4 +57,15 @@ def index_from_numpy(db, forest_arrays, spec: IndexSpec,
         raise ValueError(f"forest has {forest.n_trees} trees, spec says "
                          f"{spec.forest.n_trees}")
     cls = get_backend(spec.backend)
-    return cls(cls.engine_cls(spec, rows.contiguous(), forest=forest), spec)
+    index = cls(cls.engine_cls(spec, rows.contiguous(), forest=forest), spec)
+    if spec.backend == "rpf+int8":
+        if q8 is None or scale is None:
+            raise ValueError("an rpf+int8 index needs its q8 and scale")
+        # the port quantizes the rows itself; the carried arrays must agree
+        for name, got, want in (("q8", index.qdb.q, q8),
+                                ("scale", index.qdb.scale, scale)):
+            want = torch.as_tensor(np.array(want), device=dev)
+            if want.dtype != got.dtype or not torch.equal(want, got):
+                raise ValueError(f"the port's quantize_db does not "
+                                 f"reproduce the carried {name}")
+    return index

@@ -1,11 +1,15 @@
-"""Deterministic synthetic stand-in for MNIST-784 (a numpy copy of
-``repro/data/synthetic.py:mnist_like``; the port keeps its own copy so it
-never imports the reference).
+"""Deterministic synthetic stand-ins for the paper's two datasets (numpy
+copies of ``repro/data/synthetic.py``'s ``mnist_like`` and ``iss_like``;
+the port keeps its own copies so it never imports the reference).  The same
+seed gives the same arrays as the reference.
 
-10 class manifolds in 784-D: each class is an affine map of a low intrinsic
-dimension gaussian latent through smooth blob bases on the 28x28 grid,
-clipped to [0, 1] and unit-normalized as the paper normalizes MNIST.  The
-same seed gives the same arrays as the reference.
+``mnist_like``: 10 class manifolds in 784-D, each an affine map of a low
+intrinsic dimension gaussian latent through smooth blob bases on the 28x28
+grid, clipped to [0, 1] and unit-normalized as the paper normalizes MNIST.
+
+``iss_like``: non-negative 595-D histograms, one sparse prototype per
+vehicle model with multiplicative gamma noise, each row summing to 1 (the
+ISS-595 shape descriptors, compared under chi-square).
 """
 from __future__ import annotations
 
@@ -44,4 +48,27 @@ def mnist_like(n: int = 60_000, n_test: int = 2_000, d: int = 784,
 
     db_labels = rng.integers(0, n_classes, size=n)
     q_labels = rng.integers(0, n_classes, size=n_test)
+    return sample(n, db_labels), db_labels, sample(n_test, q_labels), q_labels
+
+
+def iss_like(n: int = 250_000, n_test: int = 2_000, d: int = 595,
+             n_models: int = 72, sparsity: float = 0.15, seed: int = 1
+             ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Returns (db (n, d), db_labels, queries (n_test, d), query_labels)."""
+    rng = np.random.default_rng(seed)
+    protos = rng.gamma(2.0, 1.0, size=(n_models, d)).astype(np.float32)
+    mask = rng.uniform(size=(n_models, d)) < sparsity
+    protos = protos * mask
+    protos /= protos.sum(axis=1, keepdims=True) + 1e-12
+
+    def sample(m: int, labels: np.ndarray) -> np.ndarray:
+        g = rng.gamma(8.0, 1.0 / 8.0, size=(m, d)).astype(np.float32)
+        x = protos[labels] * g
+        extra = rng.uniform(size=(m, d)) < 0.01
+        x += extra * rng.gamma(1.5, 0.002, size=(m, d))
+        x /= x.sum(axis=1, keepdims=True) + 1e-12
+        return x.astype(np.float32)
+
+    db_labels = rng.integers(0, n_models, size=n)
+    q_labels = rng.integers(0, n_models, size=n_test)
     return sample(n, db_labels), db_labels, sample(n_test, q_labels), q_labels

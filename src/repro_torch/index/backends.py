@@ -1,11 +1,15 @@
-"""Index backends (port of ``repro/index/backends.py``): ``rpf``, the
-paper's random-partition forest with the fused fp32 rerank.
+"""Index backends (port of ``repro/index/backends.py``):
 
-An engine is the immutable search core of one segment: it owns the rows and
-the forest and answers ``search(q, params)``.  ``params.n_probes`` widens
-the descent to the most marginal leaves; ``params.n_trees`` queries a
-prefix of the forest (the trees are independent, so any prefix is a valid
-smaller forest).
+  rpf         the paper's random-partition forest, fused fp32 rerank
+  rpf+int8    the same forest, int8 coarse shortlist -> fused fp32 rerank
+  bruteforce  exact scan through the same fused rerank (the recall oracle)
+
+An engine is the immutable search core of one segment: it owns the rows
+(and the forest) and answers ``search(q, params)``.  ``params.n_probes``
+widens the descent to the most marginal leaves; ``params.n_trees`` queries
+a prefix of the forest (the trees are independent, so any prefix is a
+valid smaller forest); ``params.expand`` sets the int8 shortlist width.
+Knobs that do not apply to a backend are inert.
 """
 from __future__ import annotations
 
@@ -13,8 +17,10 @@ import torch
 
 from repro_torch.core.forest import Forest, build_forest
 from repro_torch.core.pipeline import fused_query
+from repro_torch.core.quantized import QuantizedDB, quantize_db
 from repro_torch.index.api import Index, register_backend
 from repro_torch.index.params import IndexSpec, SearchParams
+from repro_torch.index.segments import brute_force_topk
 
 
 class RPFEngine:
@@ -29,6 +35,9 @@ class RPFEngine:
             rows, spec.forest, generator=generator, draws=draws,
             device=rows.device)
 
+    def _rerank_source(self) -> torch.Tensor | QuantizedDB:
+        return self.db
+
     def search(self, q: torch.Tensor, params: SearchParams,
                valid: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -37,11 +46,42 @@ class RPFEngine:
         if 0 < params.n_trees < cfg.n_trees:
             forest = forest.prefix(params.n_trees)
             cfg = cfg._replace(n_trees=params.n_trees)
-        return fused_query(forest, q, self.db, params.k, cfg,
+        return fused_query(forest, q, self._rerank_source(), params.k, cfg,
                            metric=params.metric, dedup=params.dedup,
                            mode=params.mode, chunk=params.chunk,
-                           n_probes=params.n_probes, valid=valid,
-                           device=self.db.device)
+                           expand=params.expand, n_probes=params.n_probes,
+                           valid=valid, device=self.db.device)
+
+
+class RPFInt8Engine(RPFEngine):
+    """Same forest; int8 coarse shortlist (k' = expand*k, scored under
+    ``params.metric`` on the dequantized rows) -> exact fp32 fused rerank.
+    ``valid`` applies at the coarse stage."""
+
+    def __init__(self, spec: IndexSpec, rows: torch.Tensor, *,
+                 generator: torch.Generator | None = None, draws=None,
+                 forest: Forest | None = None):
+        super().__init__(spec, rows, generator=generator, draws=draws,
+                         forest=forest)
+        self.qdb = quantize_db(rows)
+
+    def _rerank_source(self) -> QuantizedDB:
+        return self.qdb
+
+
+class BruteForceEngine:
+    """Exact scan routed through the shared fused rerank stage; the
+    builder's generator and draws are unused."""
+
+    def __init__(self, spec: IndexSpec, rows: torch.Tensor, *,
+                 generator: torch.Generator | None = None, draws=None):
+        self.spec = spec
+        self.db = rows
+
+    def search(self, q: torch.Tensor, params: SearchParams,
+               valid: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        return brute_force_topk(q, self.db, params, valid=valid)
 
 
 @register_backend("rpf")
@@ -53,3 +93,21 @@ class RPFIndex(Index):
     @property
     def forest(self) -> Forest:
         return self.engine.forest
+
+
+@register_backend("rpf+int8")
+class RPFInt8Index(RPFIndex):
+    """Same forest; int8 coarse shortlist -> exact fp32 fused rerank."""
+
+    engine_cls = RPFInt8Engine
+
+    @property
+    def qdb(self) -> QuantizedDB:
+        return self.engine.qdb
+
+
+@register_backend("bruteforce")
+class BruteForceIndex(Index):
+    """Exact scan via the shared fused rerank stage (the recall oracle)."""
+
+    engine_cls = BruteForceEngine

@@ -2,10 +2,13 @@
 ``repro/index/params.py``).
 
 ``SearchParams`` keeps the reference's fields, so an operating point carried
-across stays valid.  This slice serves ``k``, ``metric`` (aliases
-included), ``mode``, ``dedup``, ``chunk``, ``n_probes`` and ``n_trees``;
-``expand`` and ``min_candidates`` are inert on ``rpf`` as in the reference;
-the knobs of later slices raise ``NotImplementedError`` in ``require``.
+across stays valid.  The port serves ``k``, ``metric`` (aliases
+included), ``mode``, ``dedup``, ``chunk``, ``n_probes``, ``n_trees`` and
+``expand`` (the int8 shortlist width k' = expand*k on ``rpf+int8``); as in
+the reference, a knob that does not apply to a backend is inert
+(``expand`` on ``rpf``, the forest knobs on ``bruteforce``,
+``min_candidates`` everywhere until ``lsh-cascade`` is ported).  The knobs
+of later slices raise ``NotImplementedError`` in ``require``.
 """
 from __future__ import annotations
 
@@ -49,6 +52,8 @@ class SearchParams:
         object.__setattr__(self, "mode", canonical_mode(self.mode))
         if self.k < 1:
             raise ValueError(f"k must be >= 1, got {self.k}")
+        if self.expand < 1:
+            raise ValueError(f"expand must be >= 1, got {self.expand}")
         if self.n_probes < 1:
             raise ValueError(f"n_probes must be >= 1, got {self.n_probes}")
         if self.n_trees < 0:
@@ -71,8 +76,9 @@ class SearchParams:
 class IndexSpec:
     """Build-time description of an index: backend + build config.
 
-    backend  registry key; this slice ports ``rpf``
-    forest   ForestConfig of the forest
+    backend  registry key: ``rpf``, ``rpf+int8`` or ``bruteforce``
+             (``lsh-cascade`` is not ported yet)
+    forest   ForestConfig of the forest (unused by ``bruteforce``)
     seed     seed of the builder's generator when none is supplied
     """
 

@@ -32,6 +32,12 @@ SIGNATURES = {
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "fused_query": ("fused_gather_topk",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "fused_query_int8": ("fused_gather_topk_int8",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P]),
+    "scan_topk": ("scan_topk",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _P]),
 }
 
 _lock = threading.Lock()

@@ -14,8 +14,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import chi2_topk as _chi2
 from repro_torch.kernels import forest_traverse_hbm as _trav
 from repro_torch.kernels import fused_query as _fused
+from repro_torch.kernels import fused_query_int8 as _fused_i8
+from repro_torch.kernels import matmul_topk as _mm
 from repro_torch.kernels import ref as _ref
 
 MODES = ("auto", "kernel", "ref")
@@ -41,6 +44,21 @@ def use_kernel(mode: str, t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def topk(q: torch.Tensor, db: torch.Tensor, k: int, metric: str = "l2",
+         mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact brute-force scan + top-k, metric in {l2, dot, chi2}: l2 and
+    dot go to kernel D (``matmul_topk``), chi2 to kernel E
+    (``chi2_topk``).  Ties to the smaller id; +inf / -1 where k > N."""
+    kernel = use_kernel(mode, q)
+    if metric == "chi2":
+        if kernel:
+            return _chi2.chi2_topk(q, db, k)
+        return _ref.chi2_topk_ref(q, db, k)
+    if kernel:
+        return _mm.matmul_topk(q, db, k, metric)
+    return _ref.matmul_topk_ref(q, db, k, metric)
+
+
 def fused_rerank(q: torch.Tensor, ids: torch.Tensor, db: torch.Tensor, k: int,
                  metric: str = "l2", mode: str = "auto"
                  ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -49,6 +67,18 @@ def fused_rerank(q: torch.Tensor, ids: torch.Tensor, db: torch.Tensor, k: int,
     if use_kernel(mode, q):
         return _fused.fused_gather_topk(q, ids, db, k, metric)
     return _ref.fused_gather_topk_ref(q, ids, db, k, metric)
+
+
+def fused_rerank_int8(q: torch.Tensor, ids: torch.Tensor, q8: torch.Tensor,
+                      scale: torch.Tensor, k: int, metric: str = "l2",
+                      mode: str = "auto"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused int8-row gather + dequantize + distance + top-k over one
+    candidate chunk; ids (B, M) int32 with -1 marking empty slots, q8
+    (N, d) int8 rows with per-row f32 scales."""
+    if use_kernel(mode, q):
+        return _fused_i8.fused_gather_topk_int8(q, ids, q8, scale, k, metric)
+    return _ref.fused_gather_topk_int8_ref(q, ids, q8, scale, k, metric)
 
 
 def traverse(feat: torch.Tensor, thresh: torch.Tensor,

@@ -12,7 +12,9 @@ from typing import Callable
 import torch
 
 from repro_torch.core.distances import METRICS
-from repro_torch.kernels.common import POS_INF, REF_CALLS, topk_smallest
+from repro_torch.kernels.common import (EPS, GATHER_BUDGET_BYTES, POS_INF,
+                                        REF_CALLS, blockwise_topk,
+                                        topk_smallest)
 
 
 def fused_gather_topk_ref(q: torch.Tensor, ids: torch.Tensor,
@@ -33,6 +35,70 @@ def fused_gather_topk_ref(q: torch.Tensor, ids: torch.Tensor,
     d, pos = topk_smallest(scores, k)
     i = torch.gather(ids, 1, pos.clamp_min(0))
     return d, torch.where(torch.isinf(d), -1, i)
+
+
+def fused_gather_topk_int8_ref(q: torch.Tensor, ids: torch.Tensor,
+                               q8: torch.Tensor, scale: torch.Tensor, k: int,
+                               metric: str = "l2"
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``kernels.fused_query_int8.fused_gather_topk_int8``.
+
+    The dequant-gather of the reference's oracle: each valid slot's int8
+    row times its f32 scale (one rounded product), scored under ``metric``
+    against q; ascending, ties to the earliest slot, +inf / -1 past the
+    valid slots.  It gathers the (B, M, d) block, so callers bound M.
+    """
+    REF_CALLS["fused_gather_topk_int8"] += 1
+    valid = ids >= 0
+    safe = torch.where(valid, ids, 0).long()
+    deq = q8[safe].float() * scale[safe][:, :, None]             # (B, M, d)
+    scores = METRICS[metric](q.float()[:, None, :], deq)
+    scores = torch.where(valid, scores, POS_INF)
+    d, pos = topk_smallest(scores, k)
+    i = torch.gather(ids, 1, pos.clamp_min(0))
+    return d, torch.where(torch.isinf(d), -1, i)
+
+
+def matmul_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int,
+                    metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``kernels.matmul_topk.matmul_topk``: exact scan, l2
+    as |q|^2 - 2 q.c + |c|^2 (not clamped) or dot as -q.c; ascending, ties
+    to the smaller id, +inf / -1 where k > N.  The product is
+    ``torch.matmul`` in fp32 (TF32 must be off on the card)."""
+    REF_CALLS["matmul_topk"] += 1
+    if metric not in ("l2", "dot"):
+        raise ValueError(f"matmul_topk scores l2 or dot, not {metric!r}")
+    if q.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("matmul_topk_ref needs fp32 products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    qf = q.float()
+    q_sq = torch.sum(qf * qf, dim=1)[:, None]
+
+    def score(qq, blk):
+        cross = qq @ blk.float().T
+        if metric == "dot":
+            return -cross
+        return q_sq - 2 * cross + torch.sum(blk.float() ** 2, dim=1)[None, :]
+
+    block = max(GATHER_BUDGET_BYTES // (4 * max(q.shape[0], 1)), k)
+    return blockwise_topk(qf, db, k, score, block)
+
+
+def chi2_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``kernels.chi2_topk.chi2_topk``: exact scan of
+    sum (q - c)^2 / (q + c + 1e-12); ascending, ties to the smaller id,
+    +inf / -1 where k > N.  The reference broadcasts the whole (B, N, d)
+    block; this streams db blocks under ``GATHER_BUDGET_BYTES``."""
+    REF_CALLS["chi2_topk"] += 1
+
+    def score(qq, blk):
+        x, y = qq[:, None, :], blk.float()[None, :, :]
+        return torch.sum((x - y) ** 2 / (x + y + EPS), dim=-1)
+
+    b, d = q.shape
+    block = max(GATHER_BUDGET_BYTES // (4 * max(b, 1) * max(d, 1)), 1)
+    return blockwise_topk(q.float(), db, k, score, block)
 
 
 def descend(project: Callable[[torch.Tensor], torch.Tensor],
