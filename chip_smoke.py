@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA GPU
 
-Four paths, each driven through the entry points a user calls, with every
+Eight paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -20,6 +20,21 @@ version may have run):
   iss595   ``build_index`` on ``iss_like`` at the paper's ISS-595
            configuration (N = 250,736, d = 595, L = 160, chi2) and 1024
            queries at 1 and 4 probes (kernels A and B at d = 595)
+  tree     ``ops.traverse_tree(kernel="smem")`` on every tree of the
+           MNIST-784 forest, sliced to its used nodes, for 1, 7 and 1024
+           queries at 1 and 4 probes (kernel F); ``kernel="auto"`` on an
+           unsliced MNIST tree and an ISS-595 tree, both over the card's
+           shared-memory cap, must launch kernel A, and ``kernel="smem"``
+           there must raise
+  rerank   ``ops.rerank_candidates`` on the ``rpf`` path's own deduplicated
+           candidates gathered as db[ids]: MNIST-784 at 1 and 4 probes (M =
+           960 / 3840), ISS-595 chi2 at 1 probe (M = 1920), B = 1, 7, 1024
+           (kernel G)
+  bag      ``ops.embedding_bag`` on the MIND history bag: a 1,000,000 x 64
+           f32 table, H = 50, B = 512 and 262,144 (kernel H)
+  lsh      ``build_index`` on ``lsh-cascade`` over MNIST-784 at the paper's
+           radii and ``Index.search`` for 1, 7 and 1024 queries (the host
+           buckets, then kernel B)
 
 Phases, each printing one JSON line:
 
@@ -35,11 +50,16 @@ Phases, each printing one JSON line:
            rank whose distance is separated from its neighbours by more
            than that, and every returned id scores its returned distance
   kernels  each kernel against its plain version at the paths' shapes and
-           at edge shapes: the descent bitwise, the others by the rule above
+           at edge shapes: the descents bitwise (kernel F also against
+           kernel A), the others by the rule above (kernel G also against
+           kernel B on the same ids; kernel H within 1e-5 sum_h |w row| +
+           1e-6 of its plain version)
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
-           fall below 1 probe (a superset of candidates, reranked exactly)
+           fall below 1 probe (a superset of candidates, reranked exactly);
+           ``lsh-cascade`` beside ``rpf`` at k = 10: ms per batch, recall,
+           mean candidates, build seconds
   profile  device time per search by kernel and the device's idle share
            (``torch.profiler`` over 5 searches of 1024 queries)
   done     the script's wall time
@@ -228,6 +248,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; none is available")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import mind_bag as bagcfg
     from repro_torch.configs import rpf_iss595 as isscfg
     from repro_torch.configs import rpf_mnist784 as cfgmod
     from repro_torch.core.distances import METRICS
@@ -240,6 +261,10 @@ def main():
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.chi2_topk import chi2_topk
     from repro_torch.kernels.common import LAUNCHES, REF_CALLS
+    from repro_torch.kernels.distance_topk import distance_topk
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.forest_traverse import (forest_traverse,
+                                                     smem_node_cap)
     from repro_torch.kernels.forest_traverse_hbm import forest_traverse_hbm
     from repro_torch.kernels.fused_query import fused_gather_topk
     from repro_torch.kernels.fused_query_int8 import fused_gather_topk_int8
@@ -528,13 +553,330 @@ def main():
           "int8_max_abs_err": int8_err, "scan_cases": scan_cases,
           "matmul_max_abs_err": d_err, "chi2_max_abs_err": e_err})
 
-    # ---- timing, recall ----------------------------------------------------
+    # ---- shared by the timings below ----------------------------------------
     rate = mem_rate(card)
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
     def flush():
         flush_buf.zero_()
 
+    def bound(nbytes, ops, op_rate=FP32_FLOPS):
+        by_bytes, by_ops = nbytes / rate, ops / op_rate
+        return {"bound_ms": max(by_bytes, by_ops) * 1e3, "bytes": nbytes,
+                "operations": ops,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+    depth = node_depths(torch, child, rc.max_depth)
+
+    # ---- path: tree (kernel F through ops.traverse_tree) ---------------------
+    # every tree of the MNIST-784 forest, sliced to its used nodes (nodes are
+    # allocated as a prefix, so the slice is the same tree)
+    used = forest.n_nodes.tolist()
+    trees = [(feat[t, :n], thresh[t, :n], child[t, :n])
+             for t, n in enumerate(used)]
+    cap = smem_node_cap(dev)
+    check(max(used) <= cap, f"a used tree of {max(used)} nodes exceeds the "
+          f"shared-memory cap of {cap}")
+
+    def drive_tree():
+        return {(t, p, b): ops.traverse_tree(*trees[t], queries[:b],
+                                             rc.max_depth, n_probes=p,
+                                             kernel="smem")
+                for t in range(rc.n_trees) for p in PROBES for b in BATCHES}
+
+    tree_res, launches, ref_calls = counted(torch, counters, drive_tree)
+    require(launches, ref_calls, ("forest_traverse_smem",), "tree")
+    check(set(launches) == {"forest_traverse_smem"},
+          f"ops.traverse_tree(kernel='smem') launched {launches}")
+    launches_by_path["tree"] = launches
+    emit({"phase": "tree", "trees": rc.n_trees, "nodes_used_max": max(used),
+          "smem_node_cap": cap, "calls": len(tree_res), "launches": launches,
+          "ref_calls": ref_calls})
+    a_leaves = {p: forest_traverse_hbm(feat, thresh, child, queries,
+                                       rc.max_depth, p) for p in PROBES}
+    tree_plain = {(t, p): ref.forest_traverse_tree_ref(
+        *trees[t], queries, rc.max_depth, p)
+        for t in range(rc.n_trees) for p in PROBES}
+    for (t, p, b), got in tree_res.items():
+        check(torch.equal(got, tree_plain[t, p][:b]),
+              f"kernel F differs from its plain version: tree {t} P={p} B={b}")
+        check(torch.equal(got, a_leaves[p][t, :b]),
+              f"kernel F differs from kernel A: tree {t} P={p} B={b}")
+    # above the cap "auto" must take kernel A and "smem" must raise
+    iss_forest = iss_index.forest
+    big = {"mnist784_unsliced": (feat[0], thresh[0], child[0], queries,
+                                 rc.max_depth, a_leaves[4][0]),
+           "iss595": (iss_forest.proj_idx[0, :, 0].contiguous(),
+                      iss_forest.thresh[0], iss_forest.child_base[0], iss_q,
+                      iss_rc.max_depth, None)}
+    auto_launches = collections.Counter()
+    for name, (f, th, cb, q, depth_cap, want) in big.items():
+        check(f.shape[0] > cap, f"the {name} tree fits the cap")
+        got, launches, ref_calls = counted(torch, counters, lambda: (
+            ops.traverse_tree(f, th, cb, q, depth_cap, n_probes=4,
+                              kernel="auto")))
+        check(launches == {"forest_traverse": 1} and not ref_calls,
+              f"kernel='auto' on {name} launched {launches}, plain "
+              f"{ref_calls}")
+        auto_launches.update(launches)
+        if want is not None:
+            check(torch.equal(got, want), "kernel='auto' differs from A")
+        try:
+            ops.traverse_tree(f, th, cb, q, depth_cap, kernel="smem")
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError(f"check failed: kernel='smem' on {name} "
+                               f"({f.shape[0]} nodes) did not raise")
+    launches_by_path["tree_auto"] = dict(auto_launches)
+    emit({"phase": "compare", "path": "tree", "cases": len(tree_res),
+          "bitwise_vs_plain": True, "bitwise_vs_kernel_a": True,
+          "auto_above_cap": dict(auto_launches), "smem_above_cap": "raised",
+          "allocated_nodes": {n: int(v[0].shape[0]) for n, v in big.items()}})
+
+    # F's time on the largest tree at B = 1024, beside kernel A on the same
+    # tree: bytes are the tree once (12 B a node), one q coordinate per
+    # (query, level reached) and the output
+    t_big = max(range(rc.n_trees), key=lambda t: used[t])
+    tf = trees[t_big]
+    tf2 = tuple(a[None] for a in tf)
+    tree_rows = []
+    for p in PROBES:
+        leaves = tree_plain[t_big, p].view(queries.shape[0], -1)
+        ok = leaves >= 0
+        levels = torch.where(ok, depth[t_big, leaves.clamp_min(0).long()], 0)
+        nbytes = 12 * used[t_big] + 4 * int(levels.sum()) + 4 * leaves.numel()
+        tree_rows.append({
+            "n_probes": p, "tree": t_big, "nodes": used[t_big],
+            "smem_bytes": 12 * used[t_big],
+            "blocks": -(-queries.shape[0] // 128),
+            "ms": time_ms(torch, lambda: forest_traverse(
+                *tf, queries, rc.max_depth, p), 25, flush),
+            "kernel_a_same_tree_ms": time_ms(torch, lambda: forest_traverse_hbm(
+                *tf2, queries, rc.max_depth, p), 25, flush),
+            "plain_ms": time_ms(torch, lambda: ref.forest_traverse_tree_ref(
+                *tf, queries, rc.max_depth, p), 5, flush),
+            **bound(nbytes, 0), "max_levels": int(levels.max())})
+    del tree_res, tree_plain
+
+    # ---- path: rerank (kernel G through ops.rerank_candidates) --------------
+    def rerank_path():
+        """The rpf path's own deduplicated candidates, gathered as db[ids]
+        (20 GB in all, freed on return): drive, compare, time."""
+        gathered = []
+        for cell, metric, q, rows, ids in (
+                ("rpf_mnist784 P=1", "l2", queries, db, cand[1]),
+                ("rpf_mnist784 P=4", "l2", queries, db, cand[4]),
+                ("rpf_iss595 P=1", "chi2", iss_q, iss_db, iss_cand)):
+            ids = ids.contiguous()
+            gathered.append((cell, metric, q, rows, ids, ids >= 0,
+                             rows[ids.clamp_min(0).long()]))
+
+        def drive():
+            return [{b: ops.rerank_candidates(q[:b], c[:b], ids[:b],
+                                              mask[:b], K, metric)
+                     for b in BATCHES}
+                    for _, metric, q, _, ids, mask, c in gathered]
+
+        res, launches, ref_calls = counted(torch, counters, drive)
+        require(launches, ref_calls, ("distance_topk",), "rerank")
+        launches_by_path["rerank"] = launches
+        emit({"phase": "rerank",
+              "shapes": {g[0]: list(g[6].shape) for g in gathered},
+              "gathered_gb": sum(g[6].numel() * 4 for g in gathered) / 1e9,
+              "launches": launches, "ref_calls": ref_calls})
+        err, vs_b_err, cases = 0.0, 0.0, 0
+        for (_, metric, q, rows, ids, mask, c), per_b in zip(gathered, res):
+            for b, got in per_b.items():
+                want = in_slabs(torch, lambda lo, hi: ref.distance_topk_ref(
+                    q[lo:hi], c[lo:hi], ids[lo:hi], mask[lo:hi], K + 1,
+                    metric), b)
+                err = max(err, compare_topk(torch, got, want, K))
+                want_b = fused_gather_topk(q[:b].contiguous(), ids[:b], rows,
+                                           K + 1, metric)
+                vs_b_err = max(vs_b_err, compare_topk(torch, got, want_b, K))
+                check_scores(torch, METRICS[metric], q[:b], rows, got)
+                cases += 1
+        # edges: an all-masked row with k > M, k = 128, and ties, whose ids
+        # must come out smallest first
+        _, _, _, _, ids1, mask1, c1 = gathered[0]
+        mask7 = mask1[:7, :40].clone()
+        mask7[3] = False
+        for q, c, ids, mask, k in (
+                (queries[:7], c1[:7, :40].contiguous(),
+                 ids1[:7, :40].contiguous(), mask7, 64),
+                (queries[:7], c1[:7], ids1[:7], mask1[:7], 128)):
+            got = distance_topk(q, c, ids, mask, k, "l2")
+            want = ref.distance_topk_ref(q, c, ids, mask, k + 1, "l2")
+            err = max(err, compare_topk(torch, got, want, k))
+            cases += 1
+            if k == 64:
+                check(bool(got[1][3].eq(-1).all())
+                      and bool(got[0][3].isinf().all()),
+                      "an all-masked row is not +inf / -1")
+        tie_ids = torch.stack([torch.randperm(1000, generator=gen,
+                                              device=dev)[:300]
+                               for _ in range(2)]).int()
+        tie = (torch.zeros((2, 784), device=dev),
+               torch.ones((2, 300, 784), device=dev), tie_ids,
+               torch.ones((2, 300), dtype=torch.bool, device=dev))
+        got = distance_topk(*tie, K, "l2")
+        want = ref.distance_topk_ref(*tie, K, "l2")
+        check(torch.equal(got[1], want[1]) and torch.equal(
+            got[1], torch.sort(tie_ids, dim=1).values[:, :K]),
+            "tied slots do not come out smallest id first")
+        cases += 1
+        emit({"phase": "compare", "path": "rerank", "cases": cases,
+              "max_abs_err": err, "vs_kernel_b_max_abs_err": vs_b_err,
+              "ties": "smallest id first"})
+
+        # G reads each valid slot's row once (a masked slot loads nothing),
+        # the ids and the mask once: l2 3 operations per element, chi2
+        # CHI2_ISSUES issues per term
+        rows_out = []
+        for cell, metric, q, rows, ids, mask, c in gathered:
+            valid = int(mask.sum())
+            b, m, d = c.shape
+            nbytes = valid * d * 4 + b * m * 5 + q.numel() * 4 + b * K * 8
+            ops_ = ((3 * valid * d, FP32_FLOPS) if metric == "l2" else
+                    (CHI2_ISSUES * valid * d, FP32_FLOPS / 2))
+            rows_out.append({
+                "cell": cell, "metric": metric, "m": m, "valid_slots": valid,
+                "ms": time_ms(torch, lambda: distance_topk(
+                    q, c, ids, mask, K, metric), 25, flush),
+                "kernel_b_same_ids_ms": time_ms(
+                    torch, lambda: fused_gather_topk(q, ids, rows, K, metric),
+                    25, flush),
+                "plain_ms": time_ms(torch, lambda: in_slabs(
+                    torch, lambda lo, hi: ref.distance_topk_ref(
+                        q[lo:hi], c[lo:hi], ids[lo:hi], mask[lo:hi], K,
+                        metric), b), 3, flush),
+                **bound(nbytes, *ops_)})
+        return err, rows_out
+
+    g_err, rerank_rows = rerank_path()
+    torch.cuda.empty_cache()
+
+    # ---- path: bag (kernel H through ops.embedding_bag) ----------------------
+    # the MIND history bag: 1M x 64 f32 table, H = 50, ragged histories of 1
+    # to 50 items (the tail id 0, weight 0), B = 512 and 262,144
+    bgen = torch.Generator(device=dev).manual_seed(2)
+    hist = bagcfg.HIST_LEN
+    table = torch.randn((bagcfg.ITEM_VOCAB, bagcfg.EMBED_DIM), generator=bgen,
+                        device=dev)
+
+    def bag_inputs(b, v=bagcfg.ITEM_VOCAB, h=hist):
+        ids = torch.randint(0, v, (b, h), generator=bgen, device=dev,
+                            dtype=torch.int32)
+        w = torch.rand((b, h), generator=bgen, device=dev)
+        tail = torch.arange(h, device=dev)[None, :] >= torch.randint(
+            1, h + 1, (b, 1), generator=bgen, device=dev)
+        return ids.masked_fill(tail, 0), w.masked_fill(tail, 0.0)
+
+    bags = {name: bag_inputs(b) for name, b in bagcfg.BATCHES.items()}
+
+    def drive_bag():
+        return {name: ops.embedding_bag(ids, w, table)
+                for name, (ids, w) in bags.items()}
+
+    bag_res, launches, ref_calls = counted(torch, counters, drive_bag)
+    require(launches, ref_calls, ("embedding_bag",), "bag")
+    launches_by_path["bag"] = launches
+    emit({"phase": "bag", "table": list(table.shape), "hist_len": hist,
+          "batches": dict(bagcfg.BATCHES), "launches": launches,
+          "ref_calls": ref_calls})
+
+    def bag_err(got, ids, w, tab):
+        """Largest |kernel - plain| with its tolerance 1e-5 sum |w row| +
+        1e-6, in slabs; the NaN and inf pattern must agree."""
+        worst = 0.0
+        for lo in range(0, ids.shape[0], 32768):
+            hi = lo + 32768
+            want = ref.embedding_bag_ref(ids[lo:hi], w[lo:hi], tab)
+            scale = ref.embedding_bag_ref(ids[lo:hi], w[lo:hi].abs(),
+                                          tab.abs())
+            g = got[lo:hi]
+            check(torch.equal(g.isnan(), want.isnan())
+                  and torch.equal(g.isinf(), want.isinf()),
+                  "bag NaN / inf pattern differs")
+            fin = want.isfinite()
+            err = (g - want).abs()[fin]
+            check(bool((err <= (RTOL * scale + ATOL)[fin]).all()),
+                  f"bag error {float(err.max())}")
+            worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        return worst
+
+    import torch.nn.functional as F
+    h_err = max(bag_err(bag_res[n], *bags[n], table) for n in bags)
+    lib_err = max(bag_err(F.embedding_bag(ids, table, per_sample_weights=w,
+                                          mode="sum"), ids, w, table)
+                  for ids, w in bags.values())
+    # edges: one bag, seven bags, H = 1, D = 6 (the scalar branch), and a
+    # NaN in row 0 (every padded slot's 0 * NaN) and an inf in row 5
+    small = torch.randn((100, 6), generator=bgen, device=dev)
+    small[0, 1], small[5, 2] = float("nan"), float("inf")
+    h_cases = len(bags)
+    for tab, b, h in ((table, 1, hist), (table, 7, hist), (table, 7, 1),
+                      (small, 7, 9), (small, 300, 50)):
+        ids, w = bag_inputs(b, tab.shape[0], h)
+        h_err = max(h_err, bag_err(embedding_bag(ids, w, tab), ids, w, tab))
+        h_cases += 1
+    emit({"phase": "compare", "path": "bag", "cases": h_cases,
+          "max_abs_err": h_err, "library_max_abs_err": lib_err,
+          "tolerance": f"{RTOL} sum_h |w row| + {ATOL}"})
+
+    # H's bytes: each distinct row the bags touch once, ids and weights once,
+    # the output once; 2 operations per element
+    bag_rows = []
+    for name, (ids, w) in bags.items():
+        b = ids.shape[0]
+        d = table.shape[1]
+        distinct = int(torch.unique(ids).numel())
+        bag_rows.append({
+            "cell": name, "batch": b, "distinct_rows": distinct,
+            "gathered_bytes": b * hist * d * 4,
+            "ms": time_ms(torch, lambda: embedding_bag(ids, w, table), 25,
+                          flush),
+            "plain_ms": time_ms(torch, lambda: torch.cat([
+                ref.embedding_bag_ref(ids[lo:lo + 32768], w[lo:lo + 32768],
+                                      table)
+                for lo in range(0, b, 32768)]), 3, flush),
+            "library_ms": time_ms(torch, lambda: F.embedding_bag(
+                ids, table, per_sample_weights=w, mode="sum"), 25, flush),
+            **bound(distinct * d * 4 + b * hist * 8 + b * d * 4,
+                    2 * b * hist * d)})
+    del bag_res
+
+    # ---- path: lsh (the lsh-cascade backend, kernel B) -----------------------
+    lsh_spec = IndexSpec(backend="lsh-cascade", seed=0)
+
+    def drive_lsh():
+        t0 = time.perf_counter()
+        idx = build_index(db_np, lsh_spec, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        return idx, build_s, {b: idx.search(queries[:b], SearchParams(k=K))
+                              for b in BATCHES}
+
+    (lsh_index, lsh_build_s, lsh_res), launches, ref_calls = counted(
+        torch, counters, drive_lsh)
+    require(launches, ref_calls, ("fused_gather_topk",), "lsh")
+    launches_by_path["lsh"] = launches
+    emit({"phase": "lsh", "radii": list(lsh_spec.lsh_radii),
+          "tables": lsh_spec.lsh_tables, "bits": lsh_spec.lsh_bits,
+          "index_build_s": lsh_build_s,
+          "mean_candidates": lsh_index.last_mean_candidates,
+          "launches": launches, "ref_calls": ref_calls})
+    worst_lsh = 0.0
+    for b, got in lsh_res.items():
+        want = in_slabs(torch, lambda lo, hi: lsh_index.search(
+            queries[lo:hi], SearchParams(k=K + 1, mode="ref")), b)
+        worst_lsh = max(worst_lsh, compare_topk(torch, got, want, K))
+        check_scores(torch, METRICS["l2"], queries[:b], db, got)
+    emit({"phase": "compare", "path": "lsh", "cases": len(lsh_res),
+          "max_abs_err": worst_lsh})
+
+    # ---- timing, recall ----------------------------------------------------
     _, true_i = exact_knn(queries, db, K)
     cells = {}
     for name, idx, res in (("rpf", index, results),
@@ -575,6 +917,27 @@ def main():
           isscfg.QUERY_BATCH, "k": K, "card": smi, "exact_scan_ms": e_ms,
           "n_probes": iss_cell})
 
+    # the paper's comparison: lsh-cascade beside rpf at equal k, same run;
+    # min_candidates 1 is the paper's cascade (stop at the first radius
+    # with a match), 10 k a deeper probe of the same tables
+    lsh_cell = {}
+    for mc in (1, 10 * K):
+        params = SearchParams(k=K, min_candidates=mc)
+        ms = time_ms(torch, lambda: lsh_index.search(queries, params), 5,
+                     warm=1)
+        _, lsh_ids = lsh_index.search(queries, params)
+        lsh_cell[mc] = {"ms_per_batch": ms,
+                        "qps": cfgmod.QUERY_BATCH / ms * 1e3,
+                        "recall_at_1": recall_at_k(lsh_ids[:, :1],
+                                                   true_i[:, :1]),
+                        "recall_at_10": recall_at_k(lsh_ids, true_i),
+                        "mean_candidates": lsh_index.last_mean_candidates}
+    emit({"phase": "timing", "cell": "rpf_mnist784 / lsh-cascade",
+          "batch": cfgmod.QUERY_BATCH, "k": K, "card": smi,
+          "index_build_s": lsh_build_s, "min_candidates": lsh_cell, "rpf": {
+              p: dict(cells["rpf"][p], index_build_s=index_build_s)
+              for p in PROBES}})
+
     # ---- where the time goes: device time by kernel over 5 searches -------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -611,10 +974,12 @@ def main():
               "card": smi, "n_probes": {p: breakdown(
                   idx, q, SearchParams(k=K, n_probes=p, **kw))
                   for p in PROBES}})
+    emit({"phase": "profile", "cell": "rpf_mnist784 / lsh-cascade",
+          "batch": queries.shape[0], "card": smi,
+          "search": breakdown(lsh_index, queries, SearchParams(k=K))})
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output
-    depth = node_depths(torch, child, rc.max_depth)
     l_idx = torch.arange(rc.n_trees, device=dev)[:, None, None]
     trav_rows = []
     for p in PROBES:
@@ -650,12 +1015,6 @@ def main():
         c_feat, c_thresh, c_child, q_chain, n), 25, flush) for n in (hops, 1))
     per_level_us = (t_long - t_short) * 1e3 / (hops - 1)
     del c_feat, c_thresh, c_child
-
-    def bound(nbytes, ops, op_rate=FP32_FLOPS):
-        by_bytes, by_ops = nbytes / rate, ops / op_rate
-        return {"bound_ms": max(by_bytes, by_ops) * 1e3, "bytes": nbytes,
-                "operations": ops,
-                "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
     # fused rerank: each valid slot reads its row once; ids, q, output once
     # (l2: 3 operations per element; chi2: CHI2_ISSUES issues per term)
@@ -759,6 +1118,7 @@ def main():
         return {k: v[name] for k, v in launches_by_path.items() if name in v}
 
     t1, f1, c1 = trav_rows[0], fused_rows[0], int8_rows[0]
+    tf1, g1, h1 = tree_rows[0], rerank_rows[0], bag_rows[-1]
     per_search = {n: launches_by_path["rpf"][n] / n_searches
                   for n in launches_by_path["rpf"]}
     emit({"kernels": [
@@ -805,6 +1165,33 @@ def main():
          "launches_by_path": by_path("chi2_topk"),
          "max_abs_err": max(e_err, brute_err["chi2"]), **e_row,
          "library_ms": None},
+        {"name": "forest_traverse_smem", "route": "cuda",
+         "source": "src/repro_torch/csrc/forest_traverse_smem.cu",
+         "replaces": "src/repro/kernels/forest_traverse.py:118",
+         "launches": total("forest_traverse_smem"),
+         "launches_by_path": by_path("forest_traverse_smem"),
+         "max_abs_err": 0.0, "ms": tf1["ms"], "plain_ms": tf1["plain_ms"],
+         "bound_ms": tf1["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "latency_floor_ms": per_level_us * tf1["max_levels"] / 1e3,
+         "shapes": tree_rows},
+        {"name": "distance_topk", "route": "cuda",
+         "source": "src/repro_torch/csrc/distance_topk.cu",
+         "replaces": "src/repro/kernels/distance_topk.py:73",
+         "launches": total("distance_topk"),
+         "launches_by_path": by_path("distance_topk"),
+         "max_abs_err": g_err, "ms": g1["ms"], "plain_ms": g1["plain_ms"],
+         "bound_ms": g1["bound_ms"], "bound_by": g1["bound_by"],
+         "library_ms": None, "shapes": rerank_rows},
+        {"name": "embedding_bag", "route": "cuda",
+         "source": "src/repro_torch/csrc/embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedding_bag.py:54",
+         "launches": total("embedding_bag"),
+         "launches_by_path": by_path("embedding_bag"),
+         "max_abs_err": h_err, "ms": h1["ms"], "plain_ms": h1["plain_ms"],
+         "bound_ms": h1["bound_ms"], "bound_by": h1["bound_by"],
+         "library_ms": h1["library_ms"],
+         "library": "torch.nn.functional.embedding_bag(mode='sum', "
+                    "per_sample_weights=w)", "shapes": bag_rows},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

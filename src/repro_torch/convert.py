@@ -6,6 +6,8 @@ and ``index_from_numpy`` wraps them with their rows as a queryable ``rpf``
 or ``rpf+int8`` index without building one, so both packages can query the
 same forest.  For ``rpf+int8`` it also takes the reference's ``q8`` and
 ``scale`` and checks that the port's ``quantize_db`` gives the same bits.
+An ``lsh-cascade`` index's state is its rows alone: its tables are rebuilt
+from (rows, spec), as the reference's ``from_state`` rebuilds them.
 """
 from __future__ import annotations
 
@@ -44,11 +46,18 @@ def forest_from_numpy(arrays: Mapping[str, Any] | Any,
 def index_from_numpy(db, forest_arrays, spec: IndexSpec,
                      device: str | torch.device | None = None,
                      q8=None, scale=None):
-    """A queryable ``rpf`` or ``rpf+int8`` index over rows ``db`` (N, d)
-    and a forest built over exactly those rows with ``spec.forest``;
-    ``rpf+int8`` takes the reference's ``q8`` and ``scale`` too."""
+    """A queryable index over rows ``db`` (N, d): ``rpf`` or ``rpf+int8``
+    with a forest built over exactly those rows with ``spec.forest``
+    (``rpf+int8`` takes the reference's ``q8`` and ``scale`` too), or
+    ``lsh-cascade`` with ``forest_arrays`` None, its tables rebuilt from
+    (db, spec)."""
     dev = resolve_device(device)
     rows = torch.as_tensor(np.asarray(db, np.float32), device=dev)
+    cls = get_backend(spec.backend)
+    if spec.backend == "lsh-cascade":
+        if forest_arrays is not None:
+            raise ValueError("an lsh-cascade index holds no forest")
+        return cls(cls.engine_cls(spec, rows.contiguous()), spec)
     forest = forest_from_numpy(forest_arrays, dev)
     if forest.perm.shape[1] != rows.shape[0]:
         raise ValueError(f"forest indexes {forest.perm.shape[1]} rows, db "
@@ -56,7 +65,6 @@ def index_from_numpy(db, forest_arrays, spec: IndexSpec,
     if forest.n_trees != spec.forest.n_trees:
         raise ValueError(f"forest has {forest.n_trees} trees, spec says "
                          f"{spec.forest.n_trees}")
-    cls = get_backend(spec.backend)
     index = cls(cls.engine_cls(spec, rows.contiguous(), forest=forest), spec)
     if spec.backend == "rpf+int8":
         if q8 is None or scale is None:

@@ -1,0 +1,217 @@
+// Exact distance over pre-gathered candidate rows + masked running top-k:
+// kernel G of the port.
+//
+// Replaces the TPU kernel repro/kernels/distance_topk.py (distance_topk,
+// pallas_call at :73, body _kernel at :27), reached through
+// ops.rerank_candidates.
+//
+// Contract (plain version: repro_torch/kernels/ref.py distance_topk_ref):
+//   q (B, d) f32, cand (B, M, d) f32 rows already gathered per query, ids
+//   (B, M) int32, mask (B, M) bool -> out_d (B, k) f32, out_i (B, k) int32:
+//   the k smallest l2 or chi2 scores over the slots whose mask is set, in
+//   (score, id) order, so ties go to the smaller id as the reference's
+//   lexsort does (equal (score, id) pairs, repeats of one id, fall back to
+//   the slot, which changes nothing in the output); +inf / -1 where fewer
+//   than k slots are valid, or k > M.  chi2 is sum (q - c)^2 / (q + c +
+//   1e-12) with IEEE division (no fast math), as kernels B and E.
+//
+// What bounds it on an H100: bytes.  Each valid slot's row (d x 4 B) is read
+// once and nothing reuses it; the arithmetic is 3 flops an element for l2.
+// A masked slot loads nothing (its score is +inf whatever its row holds), so
+// the floor counts the valid slots' rows only.  The design is kernel B's
+// (fused_query.cu) without the gather: one block of 256 threads per query,
+// the query in shared memory; each warp takes slots in turn and its lanes
+// read the slot's contiguous row with coalesced 16-byte loads (scalar loads
+// when d % 4 != 0 or the rows are not 16-byte aligned); a 256-slot tile's
+// scores land in shared memory and those that beat the running k-th best
+// merge, by rank, into the running top-k in shared memory.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define THREADS 256
+#define TILE 256
+#define KMAX 128
+#define EPS 1e-12f
+
+enum Metric { L2 = 0, CHI2 = 2 };
+
+template <int METRIC>
+__device__ __forceinline__ void accum(float x, float y, float& a) {
+  const float t = x - y;
+  if (METRIC == L2) a += t * t;
+  else a += t * t / (x + y + EPS);
+}
+
+// (score, id, slot): the slot makes every key unique, so ranks are a
+// permutation
+__device__ __forceinline__ bool key_less(float da, int ia, int sa, float db, int ib,
+                                         int sb) {
+  return da < db || (da == db && (ia < ib || (ia == ib && sa < sb)));
+}
+
+template <int METRIC, bool VEC4>
+__global__ void __launch_bounds__(THREADS)
+    distance_topk_kernel(const float* __restrict__ q, const float* __restrict__ cand,
+                         const int* __restrict__ ids, const unsigned char* __restrict__ mask,
+                         float* __restrict__ out_d, int* __restrict__ out_i, int M, int d,
+                         int k) {
+  extern __shared__ __align__(16) float qs[];
+  __shared__ float tile_d[TILE];
+  __shared__ int tile_i[TILE];
+  __shared__ float surv_d[TILE];
+  __shared__ int surv_i[TILE], surv_s[TILE];
+  __shared__ float run_d[KMAX], nxt_d[KMAX];
+  __shared__ int run_i[KMAX], run_s[KMAX], nxt_i[KMAX], nxt_s[KMAX];
+  __shared__ int n_surv;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int* ids_b = ids + (size_t)b * M;
+  const unsigned char* mask_b = mask + (size_t)b * M;
+  const float* cand_b = cand + (size_t)b * M * d;
+
+  for (int c = tid; c < d; c += THREADS) qs[c] = q[(size_t)b * d + c];
+  if (tid < k) {  // distinct (+inf, beyond-M) keys
+    run_d[tid] = INFINITY;
+    run_i[tid] = 0x7fffffff;
+    run_s[tid] = M + tid;
+  }
+  if (tid == 0) n_surv = 0;
+  __syncthreads();
+
+  for (int base = 0; base < M; base += TILE) {
+    // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
+    const int first = base + warp * 32;
+    const bool my_ok = first + lane < M && mask_b[first + lane];
+    const unsigned ok_bits = __ballot_sync(0xffffffffu, my_ok);
+    float my_score = INFINITY;
+    for (int i = 0; i < 32; ++i) {
+      if (!(ok_bits >> i & 1u)) continue;  // masked slot: no load, +inf
+      const float* row = cand_b + (size_t)(first + i) * d;
+      float a = 0.f;
+      if (VEC4) {
+        const float4* r4 = reinterpret_cast<const float4*>(row);
+        const float4* q4 = reinterpret_cast<const float4*>(qs);
+        for (int c = lane; c < (d >> 2); c += 32) {
+          const float4 y = __ldg(r4 + c);
+          const float4 x = q4[c];
+          accum<METRIC>(x.x, y.x, a);
+          accum<METRIC>(x.y, y.y, a);
+          accum<METRIC>(x.z, y.z, a);
+          accum<METRIC>(x.w, y.w, a);
+        }
+      } else {
+        for (int c = lane; c < d; c += 32) accum<METRIC>(qs[c], __ldg(row + c), a);
+      }
+      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (lane == i) my_score = a;
+    }
+    tile_d[tid] = my_score;
+    tile_i[tid] = my_ok ? ids_b[first + lane] : 0;
+    __syncthreads();
+
+    // ---- keep only finite scores that beat the running k-th best
+    {
+      const float s = tile_d[tid];
+      const int id = tile_i[tid];
+      const int slot = base + tid;
+      if (isfinite(s) &&
+          key_less(s, id, slot, run_d[k - 1], run_i[k - 1], run_s[k - 1])) {
+        const int pos = atomicAdd(&n_surv, 1);
+        surv_d[pos] = s;
+        surv_i[pos] = id;
+        surv_s[pos] = slot;
+      }
+    }
+    __syncthreads();
+
+    // ---- rank-merge survivors into the running top-k
+    const int ns = n_surv;
+    if (ns > 0) {
+      if (tid < ns) {
+        const float s = surv_d[tid];
+        const int id = surv_i[tid], slot = surv_s[tid];
+        int rank = 0;
+        for (int j = 0; j < k; ++j) rank += key_less(run_d[j], run_i[j], run_s[j], s, id, slot);
+        for (int j = 0; j < ns; ++j)
+          rank += key_less(surv_d[j], surv_i[j], surv_s[j], s, id, slot);
+        if (rank < k) {
+          nxt_d[rank] = s;
+          nxt_i[rank] = id;
+          nxt_s[rank] = slot;
+        }
+      }
+      if (tid < k) {
+        const float s = run_d[tid];
+        const int id = run_i[tid], slot = run_s[tid];
+        int rank = tid;
+        for (int j = 0; j < ns; ++j)
+          rank += key_less(surv_d[j], surv_i[j], surv_s[j], s, id, slot);
+        if (rank < k) {
+          nxt_d[rank] = s;
+          nxt_i[rank] = id;
+          nxt_s[rank] = slot;
+        }
+      }
+      __syncthreads();
+      if (tid < k) {
+        run_d[tid] = nxt_d[tid];
+        run_i[tid] = nxt_i[tid];
+        run_s[tid] = nxt_s[tid];
+      }
+    }
+    if (tid == 0) n_surv = 0;
+    __syncthreads();
+  }
+
+  if (tid < k) {
+    const float s = run_d[tid];
+    out_d[(size_t)b * k + tid] = s;
+    out_i[(size_t)b * k + tid] = isinf(s) ? -1 : run_i[tid];
+  }
+}
+
+template <int METRIC, bool VEC4>
+static int launch(const float* q, const float* cand, const int* ids,
+                  const unsigned char* mask, float* out_d, int* out_i, int B, int M, int d,
+                  int k, cudaStream_t stream) {
+  auto kernel = distance_topk_kernel<METRIC, VEC4>;
+  const size_t smem = (size_t)d * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<B, THREADS, smem, stream>>>(q, cand, ids, mask, out_d, out_i, M, d, k);
+  return (int)cudaGetLastError();
+}
+
+template <int METRIC>
+static int launch_metric(const float* q, const float* cand, const int* ids,
+                         const unsigned char* mask, float* out_d, int* out_i, int B, int M,
+                         int d, int k, cudaStream_t s) {
+  if (d % 4 == 0 && (uintptr_t)cand % 16 == 0)
+    return launch<METRIC, true>(q, cand, ids, mask, out_d, out_i, B, M, d, k, s);
+  return launch<METRIC, false>(q, cand, ids, mask, out_d, out_i, B, M, d, k, s);
+}
+
+extern "C" int distance_topk(const void* q, const void* cand, const void* ids,
+                             const void* mask, void* out_d, void* out_i, int B, int M, int d,
+                             int k, int metric, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  if (k < 1 || k > KMAX || d < 1) return (int)cudaErrorInvalidValue;
+  const float* qf = (const float*)q;
+  const float* cf = (const float*)cand;
+  const int* ii = (const int*)ids;
+  const unsigned char* mm = (const unsigned char*)mask;
+  float* od = (float*)out_d;
+  int* oi = (int*)out_i;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (metric) {
+    case L2: return launch_metric<L2>(qf, cf, ii, mm, od, oi, B, M, d, k, s);
+    case CHI2: return launch_metric<CHI2>(qf, cf, ii, mm, od, oi, B, M, d, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

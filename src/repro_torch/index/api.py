@@ -32,9 +32,8 @@ def register_backend(name: str):
 def get_backend(name: str) -> type["Index"]:
     import repro_torch.index.backends  # noqa: F401  (registers on import)
     if name not in _BACKENDS:
-        raise KeyError(f"index backend {name!r} is not ported yet "
-                       f"(ported: {sorted(_BACKENDS)}; ROADMAP.md queue 1 "
-                       f"item 6 lists the rest)")
+        raise KeyError(f"unknown index backend {name!r} (known: "
+                       f"{sorted(_BACKENDS)})")
     return _BACKENDS[name]
 
 

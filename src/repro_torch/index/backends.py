@@ -1,22 +1,26 @@
 """Index backends (port of ``repro/index/backends.py``):
 
-  rpf         the paper's random-partition forest, fused fp32 rerank
-  rpf+int8    the same forest, int8 coarse shortlist -> fused fp32 rerank
-  bruteforce  exact scan through the same fused rerank (the recall oracle)
+  rpf          the paper's random-partition forest, fused fp32 rerank
+  rpf+int8     the same forest, int8 coarse shortlist -> fused fp32 rerank
+  lsh-cascade  the paper's LSH baseline: multi-radius LSH candidates on the
+               host -> the same fused rerank
+  bruteforce   exact scan through the same fused rerank (the recall oracle)
 
 An engine is the immutable search core of one segment: it owns the rows
 (and the forest) and answers ``search(q, params)``.  ``params.n_probes``
 widens the descent to the most marginal leaves; ``params.n_trees`` queries
 a prefix of the forest (the trees are independent, so any prefix is a
-valid smaller forest); ``params.expand`` sets the int8 shortlist width.
-Knobs that do not apply to a backend are inert.
+valid smaller forest); ``params.expand`` sets the int8 shortlist width;
+``params.min_candidates`` sets where the LSH cascade stops.  Knobs that do
+not apply to a backend are inert.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.forest import Forest, build_forest
-from repro_torch.core.pipeline import fused_query
+from repro_torch.core.lsh import CascadedLSH
+from repro_torch.core.pipeline import fused_query, rerank_fused
 from repro_torch.core.quantized import QuantizedDB, quantize_db
 from repro_torch.index.api import Index, register_backend
 from repro_torch.index.params import IndexSpec, SearchParams
@@ -69,6 +73,40 @@ class RPFInt8Engine(RPFEngine):
         return self.qdb
 
 
+class LSHEngine:
+    """The paper's LSH-cascade baseline behind the same search surface.
+
+    The bucket probe runs on the host in numpy (one hash per batch per
+    level, as in the reference), then the (B, M) ids and mask go to the
+    index's device and through the same fused rerank as the forest
+    backends, with dedup off: a query's candidate set holds each id once.
+    The tables are a function of (rows, spec) alone, so the builder's
+    generator and draws are unused.
+    """
+
+    def __init__(self, spec: IndexSpec, rows: torch.Tensor, *,
+                 generator: torch.Generator | None = None, draws=None):
+        self.spec = spec
+        self.db = rows
+        self.cascade = CascadedLSH(
+            rows.cpu().numpy(), list(spec.lsh_radii),
+            n_tables=spec.lsh_tables, n_bits=spec.lsh_bits,
+            width_scale=spec.lsh_width_scale, seed=spec.seed)
+        self.last_mean_candidates = 0.0
+
+    def search(self, q: torch.Tensor, params: SearchParams,
+               valid: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        ids, mask = self.cascade.retrieve_batch(
+            q.cpu().numpy(), min_candidates=params.min_candidates)
+        self.last_mean_candidates = float(mask.sum(1).mean())
+        dev = self.db.device
+        return rerank_fused(q, torch.from_numpy(ids).to(dev),
+                            torch.from_numpy(mask).to(dev), self.db,
+                            params.k, metric=params.metric, mode=params.mode,
+                            dedup=False, chunk=params.chunk, valid=valid)
+
+
 class BruteForceEngine:
     """Exact scan routed through the shared fused rerank stage; the
     builder's generator and draws are unused."""
@@ -104,6 +142,21 @@ class RPFInt8Index(RPFIndex):
     @property
     def qdb(self) -> QuantizedDB:
         return self.engine.qdb
+
+
+@register_backend("lsh-cascade")
+class LSHCascadeIndex(Index):
+    """The paper's LSH cascade: host buckets -> the fused rerank."""
+
+    engine_cls = LSHEngine
+
+    @property
+    def cascade(self) -> CascadedLSH:
+        return self.engine.cascade
+
+    @property
+    def last_mean_candidates(self) -> float:
+        return self.engine.last_mean_candidates
 
 
 @register_backend("bruteforce")

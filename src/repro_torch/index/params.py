@@ -3,12 +3,13 @@
 
 ``SearchParams`` keeps the reference's fields, so an operating point carried
 across stays valid.  The port serves ``k``, ``metric`` (aliases
-included), ``mode``, ``dedup``, ``chunk``, ``n_probes``, ``n_trees`` and
-``expand`` (the int8 shortlist width k' = expand*k on ``rpf+int8``); as in
+included), ``mode``, ``dedup``, ``chunk``, ``n_probes``, ``n_trees``,
+``expand`` (the int8 shortlist width k' = expand*k on ``rpf+int8``) and
+``min_candidates`` (the cascade's stopping count on ``lsh-cascade``); as in
 the reference, a knob that does not apply to a backend is inert
-(``expand`` on ``rpf``, the forest knobs on ``bruteforce``,
-``min_candidates`` everywhere until ``lsh-cascade`` is ported).  The knobs
-of later slices raise ``NotImplementedError`` in ``require``.
+(``expand`` on ``rpf``, the forest knobs on ``bruteforce`` and
+``lsh-cascade``, ``min_candidates`` off ``lsh-cascade``).  The knobs of
+later slices raise ``NotImplementedError`` in ``require``.
 """
 from __future__ import annotations
 
@@ -76,12 +77,21 @@ class SearchParams:
 class IndexSpec:
     """Build-time description of an index: backend + build config.
 
-    backend  registry key: ``rpf``, ``rpf+int8`` or ``bruteforce``
-             (``lsh-cascade`` is not ported yet)
-    forest   ForestConfig of the forest (unused by ``bruteforce``)
-    seed     seed of the builder's generator when none is supplied
+    backend          registry key: ``rpf``, ``rpf+int8``, ``lsh-cascade``
+                     or ``bruteforce``
+    forest           ForestConfig of the forest (rpf backends only)
+    lsh_radii        cascade radii, increasing (``lsh-cascade``)
+    lsh_tables       tables per cascade level (L)
+    lsh_bits         concatenated hashes per table (K)
+    lsh_width_scale  bucket width = width_scale * radius
+    seed             seed of the builder's generator when none is
+                     supplied; the LSH projections' numpy seed
     """
 
     backend: str = "rpf"
     forest: ForestConfig = ForestConfig()
+    lsh_radii: tuple[float, ...] = (0.4, 0.53, 0.63, 0.88)
+    lsh_tables: int = 10
+    lsh_bits: int = 12
+    lsh_width_scale: float = 1.0
     seed: int = 0

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and becomes its own
 shared library, ``build/kernels/<name>-<hash>.so`` under the repository
-root, where the hash covers the source and the flags: an edited source
-rebuilds, an unchanged one loads.  ``build_all`` starts one nvcc per source
-at once and waits for all of them.  Nothing is compiled when a module is
-imported; the first launch builds what it needs.
+root, where the hash covers the source, the headers under ``csrc/`` and
+the flags: an edited source or header rebuilds, an unchanged one loads.
+``build_all`` starts one nvcc per source at once and waits for all of
+them.  Nothing is compiled when a module is imported; the first launch
+builds what it needs.
 
 Every pointer and the stream cross as ``c_void_p`` (a bare Python int would
 be cut to 32 bits), every size as ``c_int``; each entry point returns the
@@ -38,6 +39,12 @@ SIGNATURES = {
     "scan_topk": ("scan_topk",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _P]),
+    "forest_traverse_smem": ("forest_traverse_smem",
+                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "distance_topk": ("distance_topk",
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "embedding_bag": ("embedding_bag",
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -53,8 +60,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # any source may include one
+        h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -57,3 +57,15 @@ def forest_traverse_hbm(feat: torch.Tensor, thresh: torch.Tensor,
     build.check_launch(err, "forest_traverse")
     LAUNCHES["forest_traverse"] += 1
     return out[..., 0] if n_probes == 1 else out
+
+
+def forest_traverse_hbm_tree(feat: torch.Tensor, thresh: torch.Tensor,
+                             child_base: torch.Tensor, queries: torch.Tensor,
+                             max_depth: int, n_probes: int = 1
+                             ) -> torch.Tensor:
+    """Single K = 1 tree through the forest kernel at L = 1, with the
+    single-tree contract of ``forest_traverse.forest_traverse``: feat /
+    thresh / child_base (max_nodes,) -> (B,) leaf ids for ``n_probes ==
+    1``, else (B, n_probes)."""
+    return forest_traverse_hbm(feat[None], thresh[None], child_base[None],
+                               queries, max_depth, n_probes)[0]

@@ -15,6 +15,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import chi2_topk as _chi2
+from repro_torch.kernels import distance_topk as _dist
+from repro_torch.kernels import embedding_bag as _bag
+from repro_torch.kernels import forest_traverse as _trav_smem
 from repro_torch.kernels import forest_traverse_hbm as _trav
 from repro_torch.kernels import fused_query as _fused
 from repro_torch.kernels import fused_query_int8 as _fused_i8
@@ -59,6 +62,18 @@ def topk(q: torch.Tensor, db: torch.Tensor, k: int, metric: str = "l2",
     return _ref.matmul_topk_ref(q, db, k, metric)
 
 
+def rerank_candidates(q: torch.Tensor, cand: torch.Tensor, ids: torch.Tensor,
+                      mask: torch.Tensor, k: int, metric: str = "l2",
+                      mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """Distance + masked top-k over candidate rows the caller gathered:
+    cand (B, M, d), ids (B, M) int32, mask (B, M) bool, metric l2 or chi2
+    (kernel G, ``distance_topk``).  Ties to the smaller id; +inf / -1
+    past the valid slots and where k > M."""
+    if use_kernel(mode, q):
+        return _dist.distance_topk(q, cand, ids, mask, k, metric)
+    return _ref.distance_topk_ref(q, cand, ids, mask, k, metric)
+
+
 def fused_rerank(q: torch.Tensor, ids: torch.Tensor, db: torch.Tensor, k: int,
                  metric: str = "l2", mode: str = "auto"
                  ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -90,3 +105,44 @@ def traverse(feat: torch.Tensor, thresh: torch.Tensor,
                                          max_depth, n_probes)
     return _ref.forest_traverse_ref(feat, thresh, child_base, queries,
                                     max_depth, n_probes)
+
+
+def embedding_bag(ids: torch.Tensor, weights: torch.Tensor,
+                  table: torch.Tensor, mode: str = "auto") -> torch.Tensor:
+    """Weighted multi-hot bag (B, H) x (V, D) -> (B, D) f32 (kernel H)."""
+    if use_kernel(mode, ids):
+        return _bag.embedding_bag(ids, weights, table)
+    return _ref.embedding_bag_ref(ids, weights, table)
+
+
+TREE_KERNELS = ("auto", "smem", "hbm")
+
+
+def traverse_tree(feat: torch.Tensor, thresh: torch.Tensor,
+                  child_base: torch.Tensor, queries: torch.Tensor,
+                  max_depth: int, mode: str = "auto", n_probes: int = 1,
+                  kernel: str = "auto") -> torch.Tensor:
+    """Single-tree K = 1 descent -> (B,) leaf ids for ``n_probes == 1``,
+    else (B, n_probes) (primary first, then ascending margin, -1 for
+    absent probes).
+
+    ``kernel`` picks the CUDA kernel: "smem" copies the tree into shared
+    memory (kernel F, up to ``forest_traverse.smem_node_cap`` allocated
+    nodes: it raises above the cap), "hbm" reads it from device memory
+    (kernel A at L = 1, any size), "auto" takes "smem" when the tree fits
+    and "hbm" otherwise.  The two are bitwise equal to each other and to
+    the plain version, which ``mode="ref"`` and CPU tensors run.
+    """
+    if kernel not in TREE_KERNELS:
+        raise ValueError(f"kernel must be auto|smem|hbm, got {kernel!r}")
+    if not use_kernel(mode, queries):
+        return _ref.forest_traverse_tree_ref(feat, thresh, child_base,
+                                             queries, max_depth, n_probes)
+    if kernel == "auto":
+        fits = feat.shape[0] <= _trav_smem.smem_node_cap(queries.device)
+        kernel = "smem" if fits else "hbm"
+    if kernel == "hbm":
+        return _trav.forest_traverse_hbm_tree(feat, thresh, child_base,
+                                              queries, max_depth, n_probes)
+    return _trav_smem.forest_traverse(feat, thresh, child_base, queries,
+                                      max_depth, n_probes)

@@ -59,6 +59,42 @@ def fused_gather_topk_int8_ref(q: torch.Tensor, ids: torch.Tensor,
     return d, torch.where(torch.isinf(d), -1, i)
 
 
+def distance_topk_ref(q: torch.Tensor, cand: torch.Tensor, ids: torch.Tensor,
+                      mask: torch.Tensor, k: int, metric: str = "l2"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``kernels.distance_topk.distance_topk``.
+
+    q (B, d), cand (B, M, d) pre-gathered rows, ids (B, M) int32, mask
+    (B, M) bool -> (dists (B, k) f32, ids (B, k) int32): l2 or chi2 of
+    every slot, +inf where masked, then the reference's
+    ``lexsort((ids, scores))``, so ties go to the smaller id (a stable sort
+    by id, then a stable sort by score).  +inf / -1 past the valid slots,
+    and where k > M (the reference's plain version returns min(k, M)
+    columns there; its kernel pads to k, as this does).
+    """
+    REF_CALLS["distance_topk"] += 1
+    if metric not in ("l2", "chi2"):
+        raise ValueError(f"distance_topk scores l2 or chi2, not {metric!r}")
+    scores = METRICS[metric](q.float()[:, None, :], cand.float())
+    scores = torch.where(mask, scores, POS_INF)
+    by_id = torch.sort(ids, dim=-1, stable=True).indices
+    d, pos = topk_smallest(torch.gather(scores, 1, by_id), k)
+    i = torch.gather(ids, 1, torch.gather(by_id, 1, pos.clamp_min(0)))
+    return d, torch.where(torch.isinf(d), -1, i)
+
+
+def embedding_bag_ref(ids: torch.Tensor, weights: torch.Tensor,
+                      table: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.embedding_bag.embedding_bag``: ids (B, H)
+    int32, weights (B, H) f32, table (V, D) -> (B, D) f32, the sum over h
+    of ``weights[b, h] * table[ids[b, h]]``.  Padding is id 0 with weight
+    0, and its product is taken like any other, as in the reference.  An
+    id outside [0, V) is clamped, as the reference's gather clamps it."""
+    REF_CALLS["embedding_bag"] += 1
+    rows = table[ids.long().clamp(0, table.shape[0] - 1)].float()  # (B, H, D)
+    return torch.sum(rows * weights.float()[..., None], dim=1)
+
+
 def matmul_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int,
                     metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``kernels.matmul_topk.matmul_topk``: exact scan, l2
@@ -171,3 +207,23 @@ def forest_traverse_ref(feat: torch.Tensor, thresh: torch.Tensor,
 
     return descend(project, thresh, child_base, queries.shape[0], max_depth,
                    n_probes)
+
+
+def forest_traverse_tree_ref(feat: torch.Tensor, thresh: torch.Tensor,
+                             child_base: torch.Tensor, queries: torch.Tensor,
+                             max_depth: int, n_probes: int = 1
+                             ) -> torch.Tensor:
+    """Plain version of ``kernels.forest_traverse.forest_traverse``, the
+    single-tree descent: the reference's ``forest_traverse_ref`` (n_probes
+    = 1) and ``forest_traverse_multiprobe_ref`` in one, as the forest
+    version at L = 1.  feat / thresh / child_base (max_nodes,), queries
+    (B, d) -> (B,) int32 leaf ids, or (B, n_probes) with -1 for absent
+    probes."""
+    REF_CALLS["forest_traverse_smem"] += 1
+    b_idx = torch.arange(queries.shape[0], device=feat.device).view(1, -1, 1)
+
+    def project(node):
+        return queries[b_idx, feat[node].long()]
+
+    return descend(project, thresh[None], child_base[None], queries.shape[0],
+                   max_depth, n_probes)[0]

@@ -105,8 +105,8 @@ def test_search_params_policy():
             tindex.SearchParams(**knob).require()
     with pytest.raises(ValueError, match="unknown metric"):
         tindex.SearchParams(metric="hamming").require()
-    with pytest.raises(KeyError, match="not ported"):
-        tindex.get_backend("lsh-cascade")
+    with pytest.raises(KeyError, match="unknown index backend"):
+        tindex.get_backend("hnsw")
 
 
 def test_exact_knn_and_recall_match_reference(indexes):
