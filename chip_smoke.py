@@ -31,7 +31,8 @@ version may have run):
            960 / 3840), ISS-595 chi2 at 1 probe (M = 1920), B = 1, 7, 1024
            (kernel G)
   bag      ``ops.embedding_bag`` on the MIND history bag: a 1,000,000 x 64
-           f32 table, H = 50, B = 512 and 262,144 (kernel H)
+           f32 table, H = 50, B = 512 and 262,144 (kernel H, with its launch
+           shape and an empty kernel of the same grid as its latency floor)
   lsh      ``build_index`` on ``lsh-cascade`` over MNIST-784 at the paper's
            radii and ``Index.search`` for 1, 7 and 1024 queries (the host
            buckets, then kernel B)
@@ -53,7 +54,10 @@ Phases, each printing one JSON line:
            at edge shapes: the descents bitwise (kernel F also against
            kernel A), the others by the rule above (kernel G also against
            kernel B on the same ids; kernel H within 1e-5 sum_h |w row| +
-           1e-6 of its plain version)
+           1e-6 of its plain version, at every launch shape it takes;
+           kernel E also bitwise, ids equal, against the d-ordered plain
+           sum on sparse and dense slabs of ISS-595 with edge rows and an
+           edge query)
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -69,6 +73,7 @@ and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the script exits non-zero without that line.
 """
 import collections
+import ctypes
 import json
 import os
 import re
@@ -85,10 +90,11 @@ PROBES = (1, 4)
 RTOL, ATOL = 1e-5, 1e-6
 SLAB = 128                  # queries per slab of a plain version's run
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
-# fp32 instruction issues per chi2 term in kernel E: x - y, x + y, + eps,
-# t * t, the IEEE division's fast path (reciprocal, check, five FMAs) and
-# the accumulate, as its SASS shows (``sass_per_chi2_term``); an SM issues
-# 128 fp32 lanes a cycle (FP32_FLOPS / 2)
+# fp32 instruction issues per chi2 term whose row element is not 0: x - y,
+# x + y, + eps, t * t, the IEEE division's fast path (reciprocal, check,
+# five FMAs) and the accumulate, as kernel E's SASS shows
+# (``sass_per_chi2_term``); a term whose row element is 0 costs kernel E one
+# FADD.  An SM issues 128 fp32 lanes a cycle (FP32_FLOPS / 2)
 CHI2_ISSUES = 12
 # device memory rate by card (NVIDIA data sheets); SXM is the default
 MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -180,28 +186,44 @@ def require(launches, ref_calls, names, path):
 
 def sass_per_chi2_term(path):
     """Kernel E's fp32-pipe instructions (FADD, FMUL, FFMA, FCHK,
-    MUFU.RCP) per chi2 term as compiled: counted in the SASS of
-    ``scan_topk_kernel<2>`` up to the IEEE division's slow-path subroutine,
-    per FCHK (one per term).  None where the toolkit has no
-    ``cuobjdump``."""
+    MUFU.RCP) per chi2 term of its non-zero path as compiled: counted in
+    the SASS of ``chi2_scan_kernel`` up to the IEEE division's slow-path
+    subroutine, less the zero path's FADDs (the basic blocks that hold
+    nothing but FADDs), per FCHK (one per non-zero term).  None where the
+    toolkit has no ``cuobjdump``."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    body = sass.split("Function : _Z16scan_topk_kernelILi2E")[1]
+    body = sass.split("Function : _Z16chi2_scan_kernel")[1]
     body = body.split("Function :")[0]
     code = [(int(a, 16), op, rest) for a, op, rest in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9.]+)([^;]*);",
         body)]
     calls = [int(t, 16) for _, op, rest in code if op.startswith("CALL")
              for t in re.findall(r"0x([0-9a-f]+)", rest)]
-    main = [op for a, op, _ in code if not calls or a < min(calls)]
-    n = collections.Counter(op.split(".")[0] for op in main)
+    main = [(a, op, rest) for a, op, rest in code
+            if not calls or a < min(calls)]
+    targets = {int(t, 16) for _, op, rest in main if op.startswith("BRA")
+               for t in re.findall(r"0x([0-9a-f]+)", rest)}
+    blocks, block = [], []
+    for a, op, _ in main:          # basic blocks: split at branch targets
+        if a in targets and block:  # and after every branch
+            blocks.append(block)
+            block = []
+        block.append(op.split(".")[0])
+        if op.startswith(("BRA", "CALL", "EXIT", "RET")):
+            blocks.append(block)
+            block = []
+    blocks.append(block)
+    zero_fadds = sum(len(b) - (b[-1] == "BRA") for b in blocks
+                     if b and set(b) <= {"FADD", "BRA"} and b[0] == "FADD")
+    n = collections.Counter(op for b in blocks for op in b)
     fp32 = n["FADD"] + n["FMUL"] + n["FFMA"] + n["FCHK"] \
-        + sum(op == "MUFU.RCP" for op in main)
-    return fp32 / n["FCHK"]
+        + sum(op == "MUFU.RCP" for _, op, _ in main)
+    return (fp32 - zero_fadds) / n["FCHK"]
 
 
 def time_ms(torch, fn, reps, flush=None, warm=2):
@@ -546,12 +568,46 @@ def main():
             check(bool((got[1][:, rows_chi2.shape[0]:] == -1).all()),
                   "slots past N are not -1")
         scan_cases += 1
+    # kernel E bitwise against the d-ordered plain sum: 64 queries x 4096
+    # rows of ISS-595 at k = 10 and 128, x 4096 dense rows (raised by 2e-3,
+    # every 7th element of every other row negated: no element is 0, so
+    # the warps take E's copy of the loop for chunks with no zero) at k =
+    # 10, and x 128 rows at k = 128 (every score returned).  Every row set
+    # ends in three edge rows (every 0 a -0.0; negative elements; -1e-12
+    # where query 0 is 0, so that term's denominator is 0 and query 0
+    # scores the row +inf), and query 63 is an edge query (-0.0 and
+    # negative elements)
+    slab_q = iss_q[:64].clone()
+    edge = iss_db[:3].clone()
+    edge[0][edge[0] == 0] = -0.0
+    edge[1, ::7] = -edge[1, ::7]
+    edge[2, int(torch.nonzero(slab_q[0] == 0)[0])] = -1e-12
+    slab_q[63, ::5] = -0.0
+    slab_q[63, 1::11] = -slab_q[63, 1::11]
+    dense_rows = iss_db[:4096] + 2e-3
+    dense_rows[1::2, ::7] = -dense_rows[1::2, ::7]
+    slabs = [(torch.cat([rows, edge]).contiguous(), k)
+             for rows, k in ((iss_db[:4096], K), (iss_db[:4096], 128),
+                             (dense_rows, K), (iss_db[:125], 128))]
+    del dense_rows
+    for slab_db, k in slabs:
+        got = chi2_topk(slab_q, slab_db, k)
+        want = ref.chi2_topk_dordered(slab_q, slab_db, k)
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+              f"kernel E is not bitwise the d-ordered sum ({slab_db.shape[0]} "
+              f"rows, k = {k})")
+        check(torch.equal(got[1], want[1]), "kernel E's ids differ from the "
+              f"d-ordered sum's ({slab_db.shape[0]} rows, k = {k})")
+        scan_cases += 1
+    check(bool(torch.isinf(got[0][0]).any()), "the edge row's +inf is lost")
     torch.cuda.synchronize()
     emit({"phase": "kernels", "descent_cases": trav_cases,
           "descent_bitwise": True, "fused_cases": fused_cases,
           "fused_max_abs_err": fused_err, "int8_cases": int8_cases,
           "int8_max_abs_err": int8_err, "scan_cases": scan_cases,
-          "matmul_max_abs_err": d_err, "chi2_max_abs_err": e_err})
+          "matmul_max_abs_err": d_err, "chi2_max_abs_err": e_err,
+          "chi2_dordered_slabs": [[64, r.shape[0], k] for r, k in slabs],
+          "chi2_dordered_bitwise": True})
 
     # ---- shared by the timings below ----------------------------------------
     rate = mem_rate(card)
@@ -806,22 +862,48 @@ def main():
             worst = max(worst, float(err.max()) if err.numel() else 0.0)
         return worst
 
+    # the launch shape (warps a bag, blocks) H's C entry takes for (B, H,
+    # D), and an empty kernel on the same blocks: H's latency floor
+    hlib = build.library("embedding_bag")
+    hlib.embedding_bag_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    hlib.embedding_bag_empty.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def bag_shape(b, h, d):
+        shape = (ctypes.c_int * 2)()
+        build.check_launch(hlib.embedding_bag_shape(b, h, d, shape),
+                           "embedding_bag_shape")
+        return shape[0], shape[1]
+
     import torch.nn.functional as F
     h_err = max(bag_err(bag_res[n], *bags[n], table) for n in bags)
     lib_err = max(bag_err(F.embedding_bag(ids, table, per_sample_weights=w,
                                           mode="sum"), ids, w, table)
                   for ids, w in bags.values())
-    # edges: one bag, seven bags, H = 1, D = 6 (the scalar branch), and a
-    # NaN in row 0 (every padded slot's 0 * NaN) and an inf in row 5
+    # edges: one bag, seven bags, H = 1, 600 bags (2 warps a bag), D = 6
+    # (the scalar branch) with a NaN in row 0 (every padded slot's 0 * NaN)
+    # and an inf in row 5, and the same on a copy of the MIND table (16-byte
+    # chunks, a bag split over warps that meet in shared memory)
     small = torch.randn((100, 6), generator=bgen, device=dev)
     small[0, 1], small[5, 2] = float("nan"), float("inf")
-    h_cases = len(bags)
-    for tab, b, h in ((table, 1, hist), (table, 7, hist), (table, 7, 1),
-                      (small, 7, 9), (small, 300, 50)):
+    special = table.clone()
+    special[0, 1], special[5, 2] = float("nan"), float("inf")
+    h_cases = {n: bag_shape(ids.shape[0], hist, table.shape[1])
+               for n, (ids, _) in bags.items()}
+    for tag, tab, b, h in (("1", table, 1, hist), ("7", table, 7, hist),
+                           ("7_h1", table, 7, 1), ("600", table, 600, hist),
+                           ("7_d6_nan", small, 7, 9),
+                           ("300_d6_nan", small, 300, 50),
+                           ("7_nan", special, 7, hist),
+                           ("600_nan", special, 600, hist)):
         ids, w = bag_inputs(b, tab.shape[0], h)
         h_err = max(h_err, bag_err(embedding_bag(ids, w, tab), ids, w, tab))
-        h_cases += 1
-    emit({"phase": "compare", "path": "bag", "cases": h_cases,
+        h_cases[tag] = bag_shape(b, h, tab.shape[1])
+    del special
+    check(any(wpb == 2 for wpb, _ in h_cases.values())
+          and h_cases["7_nan"][0] > 1,
+          f"bag cases miss a split launch shape: {h_cases}")
+    emit({"phase": "compare", "path": "bag",
+          "cases_warps_per_bag_blocks": h_cases,
           "max_abs_err": h_err, "library_max_abs_err": lib_err,
           "tolerance": f"{RTOL} sum_h |w row| + {ATOL}"})
 
@@ -832,11 +914,21 @@ def main():
         b = ids.shape[0]
         d = table.shape[1]
         distinct = int(torch.unique(ids).numel())
+        wpb, blocks = h_cases[name]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def empty():
+            build.check_launch(hlib.embedding_bag_empty(b, hist, d, stream),
+                               "embedding_bag_empty")
+
+        empty()
         bag_rows.append({
             "cell": name, "batch": b, "distinct_rows": distinct,
             "gathered_bytes": b * hist * d * 4,
+            "warps_per_bag": wpb, "blocks": blocks,
             "ms": time_ms(torch, lambda: embedding_bag(ids, w, table), 25,
                           flush),
+            "latency_floor_ms": time_ms(torch, empty, 25, flush),
             "plain_ms": time_ms(torch, lambda: torch.cat([
                 ref.embedding_bag_ref(ids[lo:lo + 32768], w[lo:lo + 32768],
                                       table)
@@ -1073,8 +1165,7 @@ def main():
                 b, 256), 3, flush),
             **bound(nbytes, 4 * valid * db.shape[1])})
 
-    # exact scans: each input read once; D does 2 B N d flops, E issues
-    # CHI2_ISSUES fp32 instructions per term
+    # exact scans: each input read once; D does 2 B N d flops
     d_row = {
         "ms": time_ms(torch, lambda: matmul_topk(queries, db, K, "l2"), 10,
                       flush),
@@ -1087,27 +1178,40 @@ def main():
         **bound((bq_ + bn_) * (bd_ + 1) * 4 + bq_ * K * 8,
                 2 * bq_ * bn_ * bd_)}
     ib, in_, id_ = iss_q.shape[0], iss_db.shape[0], iss_db.shape[1]
-    # where q and c are both 0 the term is 0 / 1e-12, which the compiled
-    # IEEE division may send down its slow path: the share of such terms,
-    # and E's time on the same shapes with the queries raised by 1e-3 and
-    # the rows by 2e-3, so that no term's numerator is 0
+    # the share of terms whose q and c are both 0 (0 / 1e-12: the IEEE
+    # division's slow path)
+    # and of db elements that are 0 (kernel E's one-FADD case), and E's time
+    # on the same shapes with the queries raised by 1e-3 and the rows by
+    # 2e-3, so that no element is 0 (dense data).  E's bound (also
+    # ``work_bound_ms``) counts the work this data needs (1 issue a term
+    # whose row element is 0, CHI2_ISSUES for the others); the dense one
+    # (CHI2_ISSUES every term, the bound of E's earlier row-lane layout)
+    # stands beside it
     zero_terms = float(((iss_q == 0).sum(0).double()
                         * (iss_db == 0).sum(0).double()).sum())
+    db_zeros = int((iss_db == 0).sum())
     iss_q_d, iss_db_d = iss_q + 1e-3, iss_db + 2e-3
     dense_ms = time_ms(torch, lambda: chi2_topk(iss_q_d, iss_db_d, K), 3,
                        warm=1)
     del iss_q_d, iss_db_d
+    e_bytes = (ib + in_) * id_ * 4 + ib * K * 8
+    e_work = bound(e_bytes,
+                   ib * (db_zeros + CHI2_ISSUES * (in_ * id_ - db_zeros)),
+                   FP32_FLOPS / 2)
     e_row = {
         "ms": e_ms,
         "zero_term_share": zero_terms / (ib * in_ * id_),
+        "db_zero_share": db_zeros / (in_ * id_),
+        "work_bound_ms": e_work["bound_ms"],
+        "dense_bound_ms": bound(e_bytes, CHI2_ISSUES * ib * in_ * id_,
+                                FP32_FLOPS / 2)["bound_ms"],
         "ms_no_zero_numerator": dense_ms,
-        "sass_fp32_issues_per_term": sass_per_chi2_term(
-            build.library_path("scan_topk")),
+        "sass_fp32_issues_per_nonzero_term": sass_per_chi2_term(
+            build.library_path("chi2_topk")),
         "plain_ms": time_ms(torch, lambda: ref.chi2_topk_ref(
             iss_q, iss_db, K), 1, warm=0),
-        "terms": ib * in_ * id_, "issues_per_term": CHI2_ISSUES,
-        **bound((ib + in_) * id_ * 4 + ib * K * 8,
-                CHI2_ISSUES * ib * in_ * id_, FP32_FLOPS / 2)}
+        "terms": ib * in_ * id_, "issues_per_nonzero_term": CHI2_ISSUES,
+        **e_work}
     torch.cuda.synchronize()
     emit({"phase": "done", "wall_s": time.perf_counter() - wall0})
 
@@ -1159,7 +1263,7 @@ def main():
          "max_abs_err": max(d_err, brute_err["l2"], brute_err["dot"]),
          **d_row, "library_ms": None},
         {"name": "chi2_topk", "route": "cuda",
-         "source": "src/repro_torch/csrc/scan_topk.cu",
+         "source": "src/repro_torch/csrc/chi2_topk.cu",
          "replaces": "src/repro/kernels/chi2_topk.py:69",
          "launches": total("chi2_topk"),
          "launches_by_path": by_path("chi2_topk"),
@@ -1190,6 +1294,7 @@ def main():
          "max_abs_err": h_err, "ms": h1["ms"], "plain_ms": h1["plain_ms"],
          "bound_ms": h1["bound_ms"], "bound_by": h1["bound_by"],
          "library_ms": h1["library_ms"],
+         "latency_floor_ms": h1["latency_floor_ms"],
          "library": "torch.nn.functional.embedding_bag(mode='sum', "
                     "per_sample_weights=w)", "shapes": bag_rows},
     ]})

@@ -1,38 +1,36 @@
-// Exact brute-force scan + streaming top-k: kernel D (l2 / dot) and kernel E
-// (chi2) of the port, one tiled kernel with the metric as a template
-// parameter.
+// Exact brute-force scan + streaming top-k: kernel D (l2 / dot) of the port,
+// one tiled kernel with the metric as a template parameter.
 //
-// Replaces the TPU kernels repro/kernels/matmul_topk.py (matmul_topk,
-// pallas_call at :79) and repro/kernels/chi2_topk.py (chi2_topk,
-// pallas_call at :69).
+// Replaces the TPU kernel repro/kernels/matmul_topk.py (matmul_topk,
+// pallas_call at :79).  Kernel E (chi2) has its own design in
+// chi2_topk.cu; the two share the merge of row slices (merge_slices.cuh).
 //
-// Contract (plain versions: repro_torch/kernels/ref.py matmul_topk_ref,
-// chi2_topk_ref):
+// Contract (plain version: repro_torch/kernels/ref.py matmul_topk_ref):
 //   q (B, d) f32, db (N, d) f32 -> out_d (B, k) f32, out_i (B, k) int32:
 //   the k smallest scores in (score, id) order, so ties go to the smaller
 //   id; +inf / -1 past N.  l2 is |q|^2 - 2 q.c + |c|^2 (not clamped), with
-//   |q|^2 and |c|^2 given as (B,) and (N,) vectors; dot is -q.c; chi2 is
-//   sum (q - c)^2 / (q + c + 1e-12) with IEEE division (no fast math).
+//   |q|^2 and |c|^2 given as (B,) and (N,) vectors; dot is -q.c.
 //
 // What bounds it on an H100: operations.  Every (query, row) pair costs d
-// terms (96 GFLOP for 1024 queries against MNIST-784, 1.5e11 chi2 terms
-// against ISS-595), while the rows are read from memory once per query
-// tile.  The products are fp32 FFMAs, not TF32 or cuBLAS: the reference's
-// products are IEEE fp32.  The design: a block takes a tile of 32 queries
-// and one slice of the rows; it streams 128-row x 32-column tiles of db
-// (and the matching 32 x 32 query tile) through shared memory, and each
-// thread keeps a 4-query x 4-row block of sums in registers.  Warp w holds
-// every score of queries 4w .. 4w + 3 for the tile, so it merges them into
-// those queries' running top-k (shared memory) by itself: it keeps only
-// scores that beat the k-th best, and places them by rank.  The (B, N)
-// score matrix is never written.  Row slices are sized so that one wave of
-// blocks fills the card; each slice leaves a sorted top-k and a second
-// kernel merges the slices of a query, one warp per query, one lane per
-// slice.
+// multiply-adds (96 GFLOP for 1024 queries against MNIST-784), while the
+// rows are read from memory once per query tile.  The products are fp32
+// FFMAs, not TF32 or cuBLAS: the reference's products are IEEE fp32.  The
+// design: a block takes a tile of 32 queries and one slice of the rows; it
+// streams 128-row x 32-column tiles of db (and the matching 32 x 32 query
+// tile) through shared memory, and each thread keeps a 4-query x 4-row
+// block of sums in registers.  Warp w holds every score of queries 4w ..
+// 4w + 3 for the tile, so it merges them into those queries' running top-k
+// (shared memory) by itself: it keeps only scores that beat the k-th best,
+// and places them by rank.  The (B, N) score matrix is never written.  Row
+// slices are sized so that one wave of blocks fills the card; each slice
+// leaves a sorted top-k and a second kernel merges the slices of a query,
+// one warp per query, one lane per slice.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
+
+#include "merge_slices.cuh"
 
 #define BQ 32
 #define BN 128
@@ -41,13 +39,8 @@
 #define WARPS (THREADS / 32)
 #define KMAX 128
 #define MAX_SLICES 32
-#define EPS 1e-12f
 
-enum Metric { L2 = 0, DOT = 1, CHI2 = 2 };
-
-__device__ __forceinline__ bool lex_less(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
-}
+enum Metric { L2 = 0, DOT = 1 };
 
 template <int METRIC>
 __global__ void __launch_bounds__(THREADS)
@@ -117,14 +110,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (METRIC == CHI2) {
-              const float t = a[i] - bb[j];
-              acc[i][j] += t * t / (a[i] + bb[j] + EPS);
-            } else {
-              acc[i][j] += a[i] * bb[j];
-            }
-          }
+          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bb[j];
       }
       __syncthreads();
     }
@@ -152,8 +138,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 4; ++j) {
         id[j] = r0 + lane + 32 * j;
         if (METRIC == L2) s[j] = my_qsq[i] - 2.f * acc[i][j] + csq[j];
-        else if (METRIC == DOT) s[j] = -acc[i][j];
-        else s[j] = acc[i][j];
+        else s[j] = -acc[i][j];
         const bool keep = id[j] < hi && lex_less(s[j], id[j], kd, ki);
         m[j] = __ballot_sync(0xffffffffu, keep);
         ns += __popc(m[j]);
@@ -227,54 +212,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Merge the n_slices sorted top-k lists of each query: one warp per query,
-// lane l walks slice l; each step the warp takes the smallest (score, id)
-// head (lane breaks the ties of +inf padding).
-__global__ void merge_slices_kernel(const float* __restrict__ part_d,
-                                    const int* __restrict__ part_i,
-                                    float* __restrict__ out_d, int* __restrict__ out_i,
-                                    int B, int k, int n_slices) {
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (b >= B) return;  // warp-uniform
-  const size_t base = ((size_t)b * n_slices + lane) * k;
-  int ptr = 0;
-  float hd = INFINITY;
-  int hi = 0x7fffffff;
-  if (lane < n_slices) {
-    hd = part_d[base];
-    hi = part_i[base];
-  }
-  for (int r = 0; r < k; ++r) {
-    float bd = hd;
-    int bi = hi, bl = lane;
-    for (int o = 16; o > 0; o >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
-      if (od < bd || (od == bd && (oi < bi || (oi == bi && ol < bl)))) {
-        bd = od;
-        bi = oi;
-        bl = ol;
-      }
-    }
-    if (lane == 0) {
-      out_d[(size_t)b * k + r] = bd;
-      out_i[(size_t)b * k + r] = isinf(bd) ? -1 : bi;
-    }
-    if (lane == bl) {
-      ++ptr;
-      if (ptr < k) {
-        hd = part_d[base + ptr];
-        hi = part_i[base + ptr];
-      } else {
-        hd = INFINITY;
-        hi = 0x7fffffff;
-      }
-    }
-  }
-}
-
 template <int METRIC>
 static int launch(const float* q, const float* db, const float* q_sq, const float* db_sq,
                   float* part_d, int* part_i, float* out_d, int* out_i, int B, int N, int d,
@@ -331,7 +268,6 @@ extern "C" int scan_topk(const void* q, const void* db, const void* q_sq, const 
   switch (metric) {
     case L2: return launch<L2>(qf, dbf, qsq, dsq, pd, pi, od, oi, B, N, d, k, max_slices, s);
     case DOT: return launch<DOT>(qf, dbf, qsq, dsq, pd, pi, od, oi, B, N, d, k, max_slices, s);
-    case CHI2: return launch<CHI2>(qf, dbf, qsq, dsq, pd, pi, od, oi, B, N, d, k, max_slices, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

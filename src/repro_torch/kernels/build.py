@@ -45,6 +45,8 @@ SIGNATURES = {
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "embedding_bag": ("embedding_bag",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "chi2_topk": ("chi2_topk",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -3,10 +3,15 @@
 
 ``embedding_bag`` launches ``csrc/embedding_bag.cu`` for tensors on a CUDA
 device and runs its plain version (``ref.embedding_bag_ref``) for tensors
-on the CPU.  One warp sums one bag in h order in fp32; the (B, H, D)
-gathered rows are never written.  ``torch.nn.functional.embedding_bag``
-computes the same function and is only the yardstick ``chip_smoke.py``
-times beside the kernel.
+on the CPU.  The kernel sums a bag in a fixed order that is not h order:
+each of the bag's ``warps_per_bag`` warps takes a contiguous range of
+slots, a lane sums every R-th slot of its range (R = 2 rows a warp-step at
+D = 64), the R partial sums are added pairwise and then the warps' sums
+in warp order; the (B, H, D) gathered rows are never written.  The C
+entry picks the warps a bag from B and the card's SM count, so that few
+bags still fill the card.  ``torch.nn.functional.embedding_bag`` computes
+the same function and is only the yardstick ``chip_smoke.py`` times
+beside the kernel.
 """
 from __future__ import annotations
 

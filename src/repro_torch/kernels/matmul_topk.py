@@ -1,6 +1,6 @@
 """Exact brute-force l2 / dot scan with a streaming top-k: kernel D (port
-of ``repro/kernels/matmul_topk.py``), and the launcher it shares with
-kernel E (``kernels/chi2_topk.py``).
+of ``repro/kernels/matmul_topk.py``), and the input checks and scratch it
+shares with kernel E (``kernels/chi2_topk.py``).
 
 ``matmul_topk`` launches ``csrc/scan_topk.cu`` for tensors on a CUDA device
 and runs its plain version (``ref.matmul_topk_ref``) for tensors on the
@@ -20,42 +20,48 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import LAUNCHES, check_tensor
 from repro_torch.kernels.ref import matmul_topk_ref
 
-METRIC_CODES = {"l2": 0, "dot": 1, "chi2": 2}
+METRIC_CODES = {"l2": 0, "dot": 1}
 K_MAX = 128
 # row slices per query tile: at most one per lane of the merging warp; the
 # kernel picks how many, so the scratch holds the most
-_MAX_SLICES = 32
+MAX_SLICES = 32
 
 
-def scan_topk(q: torch.Tensor, db: torch.Tensor, k: int, metric: str
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/scan_topk.cu`` on CUDA tensors under ``metric``."""
+def scan_outputs(q: torch.Tensor, db: torch.Tensor, k: int
+                 ) -> tuple[torch.Tensor, ...]:
+    """Check an exact scan's CUDA inputs and allocate its slice scratch and
+    outputs: (part_d, part_i) (B, MAX_SLICES, k), (out_d, out_i) (B, k)."""
     dev = q.device
     check_tensor("q", q, torch.float32, 2, dev)
     check_tensor("db", db, torch.float32, 2, dev)
     b, d = q.shape
-    n = db.shape[0]
     if db.shape[1] != d:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, db "
                          f"{tuple(db.shape)}")
     if not 1 <= k <= K_MAX:
         raise ValueError(f"k must be in [1, {K_MAX}], got {k}")
-    if n == 0:
+    if db.shape[0] == 0:
         raise ValueError("db holds no rows")
+    return (torch.empty((b, MAX_SLICES, k), dtype=torch.float32, device=dev),
+            torch.empty((b, MAX_SLICES, k), dtype=torch.int32, device=dev),
+            torch.empty((b, k), dtype=torch.float32, device=dev),
+            torch.empty((b, k), dtype=torch.int32, device=dev))
+
+
+def scan_topk(q: torch.Tensor, db: torch.Tensor, k: int, metric: str
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/scan_topk.cu`` on CUDA tensors under ``metric``."""
+    part_d, part_i, out_d, out_i = scan_outputs(q, db, k)
+    (b, d), n = q.shape, db.shape[0]
     if metric == "l2":
         q_sq, db_sq = torch.sum(q * q, dim=1), torch.sum(db * db, dim=1)
     else:                                 # not read by the kernel
         q_sq = db_sq = q.new_empty(1)
-    part_d = torch.empty((b, _MAX_SLICES, k), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((b, _MAX_SLICES, k), dtype=torch.int32, device=dev)
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = build.library("scan_topk").scan_topk
     err = fn(q.data_ptr(), db.data_ptr(), q_sq.data_ptr(), db_sq.data_ptr(),
              part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-             out_i.data_ptr(), b, n, d, k, _MAX_SLICES, METRIC_CODES[metric],
-             torch.cuda.current_stream(dev).cuda_stream)
+             out_i.data_ptr(), b, n, d, k, MAX_SLICES, METRIC_CODES[metric],
+             torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, "scan_topk")
     return out_d, out_i
 

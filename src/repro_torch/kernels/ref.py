@@ -137,6 +137,28 @@ def chi2_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int
     return blockwise_topk(q.float(), db, k, score, block)
 
 
+def chi2_topk_dordered(q: torch.Tensor, db: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``chi2_topk_ref`` with kernel E's order of sums: each pair's terms
+    t = q - c; t * t / ((q + c) + 1e-12) are added one by one in d order
+    in fp32, so its distances are bitwise the kernel's (``torch.sum``
+    adds them in another order).  One elementwise pass per dimension: for
+    tests and ``chip_smoke.py``'s slab check, not for full-size scans."""
+    REF_CALLS["chi2_topk_dordered"] += 1
+
+    def score(qq, blk):
+        acc = qq.new_zeros((qq.shape[0], blk.shape[0]))
+        for j in range(qq.shape[1]):
+            x, y = qq[:, j, None], blk[None, :, j].float()
+            t = x - y
+            acc = acc + t * t / (x + y + EPS)
+        return acc
+
+    b = q.shape[0]
+    block = max(GATHER_BUDGET_BYTES // (4 * max(b, 1)), 1)
+    return blockwise_topk(q.float(), db, k, score, block)
+
+
 def descend(project: Callable[[torch.Tensor], torch.Tensor],
             thresh: torch.Tensor, child_base: torch.Tensor, n_queries: int,
             max_depth: int, n_probes: int) -> torch.Tensor:

@@ -73,6 +73,51 @@ def test_chi2_topk_ref_matches_reference(b, n, d, k):
     _assert_topk(got, want)
 
 
+@pytest.mark.parametrize("b,n,d,k", [(9, 300, 16, 7), (2, 40, 595, 10),
+                                     (3, 5, 33, 4)])
+def test_chi2_topk_dordered_matches_reference(b, n, d, k):
+    """Kernel E's order of sums (each term added in d order) against the
+    reference's plain scan; sparse rows, as the kernel's zero path sees."""
+    q, db = _inputs(b, n, d, seed=b + n + d, nonneg=True)
+    db[np.random.default_rng(d).uniform(size=db.shape) < 0.8] = 0.0
+    got = tref.chi2_topk_dordered(torch.from_numpy(q), torch.from_numpy(db),
+                                  k)
+    want = jref.chi2_topk_ref(jnp.asarray(q), jnp.asarray(db), k)
+    _assert_topk(got, want)
+
+
+def _special_floats(n, seed):
+    """float32 values from a seed over many binades, with +-0, negatives,
+    subnormals, +-inf, NaN and the values where q + 1e-12 is 0 or tiny."""
+    rng = np.random.default_rng(seed)
+    mant = rng.uniform(1.0, 2.0, size=n)
+    expo = rng.integers(-149, 128, size=n).astype(np.float64)
+    sign = rng.choice([-1.0, 1.0], size=n)
+    with np.errstate(over="ignore"):
+        x = (sign * mant * 2.0 ** expo).astype(np.float32)
+    eps = np.float32(1e-12)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                        1e-40, -1e-40, 1.17549435e-38, eps, -eps,
+                        np.nextafter(-eps, 0), np.nextafter(-eps, -1),
+                        np.finfo(np.float32).max, -np.finfo(np.float32).max],
+                       dtype=np.float32)
+    return torch.from_numpy(np.concatenate([x, special]))
+
+
+@pytest.mark.parametrize("c", [0.0, -0.0])
+def test_chi2_term_against_a_zero_row_element_is_the_querys_own(c):
+    """Kernel E's zero path: for c = +0 or -0 the term t = q - c;
+    t * t / ((q + c) + 1e-12) is q * q / (q + 1e-12) bit for bit, for
+    every float q."""
+    q = _special_floats(200_000, seed=14)
+    cc = torch.full_like(q, c)
+    t = q - cc
+    full = t * t / (q + cc + 1e-12)
+    own = q * q / (q + 1e-12)
+    assert torch.equal(full.view(torch.int32), own.view(torch.int32))
+    assert int(torch.isnan(own).sum()) > 0 and int(torch.isinf(own).sum()) > 0
+
+
 def test_streamed_scans_keep_the_smaller_id_on_ties(monkeypatch):
     """A db of repeated rows scanned in blocks of a few rows: the merged
     top-k equals the reference's single lexsort, ties to the smaller id."""

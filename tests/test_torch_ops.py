@@ -186,8 +186,12 @@ def _bag_inputs(b, h, v, d, seed):
     return ids, w, table
 
 
-@pytest.mark.parametrize("b,h,v,d", [(9, 50, 300, 64), (5, 7, 40, 6),
-                                     (1, 33, 10, 3)])
+@pytest.mark.parametrize("b,h,v,d", [
+    (9, 50, 300, 64), (5, 7, 40, 6), (1, 33, 10, 3),
+    # the edge shapes chip_smoke.py holds kernel H to: one bag, 7 bags, H =
+    # 1, D = 6 (the scalar branch), and more bags than a block's warps
+    (1, 50, 500, 64), (7, 50, 500, 64), (7, 1, 500, 64), (300, 50, 100, 6),
+    (64, 50, 1000, 64)])
 def test_embedding_bag_matches_reference(b, h, v, d):
     ids, w, table = _bag_inputs(b, h, v, d, seed=b + h)
     got = ops.embedding_bag(*_t(ids, w, table))
