@@ -15,8 +15,9 @@ version may have run):
            (kernels A and B)
   int8     the same on ``rpf+int8`` with expand 4 (kernels A, C and B)
   brute    ``ops.topk`` l2 and dot on MNIST-784 (kernel D), the
-           ``bruteforce`` backend on MNIST-784 (kernel B at M = N), and
-           ``ops.topk`` chi2 on ISS-595 at full size (kernel E); B = 1024
+           ``bruteforce`` backend on MNIST-784 (kernel B's query-tiled scan,
+           ``fused_scan``), and ``ops.topk`` chi2 on ISS-595 at full size
+           (kernel E); B = 1024
   iss595   ``build_index`` on ``iss_like`` at the paper's ISS-595
            configuration (N = 250,736, d = 595, L = 160, chi2) and 1024
            queries at 1 and 4 probes (kernels A and B at d = 595)
@@ -58,6 +59,18 @@ Phases, each printing one JSON line:
            kernel E also bitwise, ids equal, against the d-ordered plain
            sum on sparse and dense slabs of ISS-595 with edge rows and an
            edge query)
+  scan     kernel B's scan against kernel B's gather over ids = arange(N),
+           bit for bit in scores and ids: all 1024 MNIST-784 queries (l2,
+           every row live and every 7th row dead), 128-query slabs for dot,
+           cosine (dead rows) and chi2 (ISS-595, live and dead rows), and a
+           50-row db at k = 129 (+inf / -1 past N)
+  anyk     k = 129 and 256 (past every kernel's list of 128, or 512 for
+           kernel C): ``Index.search`` on ``rpf``, ``rpf+int8`` (expand 4 at
+           4 probes: k' = 516 and 1024) and ``bruteforce``, ``ops.topk`` l2,
+           dot and chi2 (an ISS-595 slab) and ``ops.rerank_candidates``, each
+           against its plain version by the rule above; and kernels B, C, D,
+           E, G and the scan at k = 129 and 256, whose first 10 columns must
+           be their own k = 10 output bit for bit
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -288,7 +301,7 @@ def main():
     from repro_torch.kernels.forest_traverse import (forest_traverse,
                                                      smem_node_cap)
     from repro_torch.kernels.forest_traverse_hbm import forest_traverse_hbm
-    from repro_torch.kernels.fused_query import fused_gather_topk
+    from repro_torch.kernels.fused_query import fused_gather_topk, fused_scan
     from repro_torch.kernels.fused_query_int8 import fused_gather_topk_int8
     from repro_torch.kernels.matmul_topk import matmul_topk
 
@@ -378,17 +391,17 @@ def main():
           "searches": len(results8), "expand": EXPAND,
           "launches": launches, "ref_calls": ref_calls})
 
-    def int8_plain(q, p):
+    def int8_plain(q, p, k=K):
         """The plain path of ``rerank_fused_quantized``, stage by stage,
-        with stage 2 widened to K + 1 so the last rank's lower neighbour
+        with stage 2 widened to k + 1 so the last rank's lower neighbour
         is known."""
         ids, mask = candidates(index8.forest, q, rc.max_depth, rc.leaf_pad,
                                p, mode="ref")
         ids = torch.where(mask_duplicates(ids, mask), ids, -1).int()
-        kp = min(EXPAND * K, ids.shape[1])
+        kp = min(EXPAND * k, ids.shape[1])
         _, short = ref.fused_gather_topk_int8_ref(q, ids, qdb.q, qdb.scale,
                                                   kp)
-        return ref.fused_gather_topk_ref(q, short, qdb.fp, K + 1)
+        return ref.fused_gather_topk_ref(q, short, qdb.fp, k + 1)
 
     worst8 = 0.0
     for (p, b), got in results8.items():
@@ -417,8 +430,8 @@ def main():
         return bidx, out
 
     (bidx, brute), launches, ref_calls = counted(torch, counters, drive_brute)
-    require(launches, ref_calls, ("matmul_topk", "fused_gather_topk",
-                                  "chi2_topk"), "brute")
+    require(launches, ref_calls, ("matmul_topk", "fused_scan", "chi2_topk"),
+            "brute")
     launches_by_path["brute"] = launches
     emit({"phase": "brute", "mnist": list(db.shape),
           "iss595": list(iss_db.shape), "iss_data_s": iss_data_s,
@@ -608,6 +621,106 @@ def main():
           "matmul_max_abs_err": d_err, "chi2_max_abs_err": e_err,
           "chi2_dordered_slabs": [[64, r.shape[0], k] for r, k in slabs],
           "chi2_dordered_bitwise": True})
+
+    # ---- kernel B's scan against its gather, bit for bit --------------------
+    def gather_all(q, rows, k, metric, valid=None):
+        """Kernel B's gather over ids = arange(N), -1 where ``valid`` is
+        False, for every query: the scan's function as the gather computes
+        it."""
+        ids = torch.arange(rows.shape[0], dtype=torch.int32, device=dev)
+        if valid is not None:
+            ids = torch.where(valid, ids, -1)
+        return fused_gather_topk(q, ids.expand(q.shape[0], -1).contiguous(),
+                                 rows, k, metric)
+
+    def bitwise(got, want):
+        return (torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32))
+                and torch.equal(got[1], want[1]))
+
+    def every_7th_dead(rows):
+        return torch.arange(rows.shape[0], device=dev) % 7 != 0
+
+    iss_slab = iss_q[:SLAB].contiguous()
+    db50 = db[:50].contiguous()
+    bitwise_cases = []
+    for metric, q, rows, valid, k in (
+            ("l2", queries, db, None, K),
+            ("l2", queries, db, every_7th_dead(db), K),
+            ("dot", queries[:SLAB], db, None, K),
+            ("cosine", queries[:SLAB], db, every_7th_dead(db), K),
+            ("chi2", iss_slab, iss_db, None, K),
+            ("chi2", iss_slab, iss_db, every_7th_dead(iss_db), K),
+            ("l2", queries[:7], db50, None, 129),
+            ("dot", queries[:7], db50, every_7th_dead(db50), 129)):
+        q = q.contiguous()
+        got = fused_scan(q, rows, k, metric, valid)
+        want = gather_all(q, rows, k, metric, valid)
+        tag = (f"{metric}, {q.shape[0]} x {rows.shape[0]}, k = {k}, "
+               f"{'every 7th row dead' if valid is not None else 'all live'}")
+        check(bitwise(got, want), f"the scan differs from B's gather: {tag}")
+        live = rows.shape[0] if valid is None else int(valid.sum())
+        check(bool((got[1][:, live:] == -1).all())
+              and bool(torch.isinf(got[0][:, live:]).all()),
+              f"the scan's slots past the live rows are not +inf / -1: {tag}")
+        bitwise_cases.append(tag)
+    emit({"phase": "scan", "bitwise_vs_gather": True,
+          "cases": bitwise_cases})
+
+    # ---- any k: k = 129 and 256 -------------------------------------------
+    any_k, any_err = (129, 256), {}
+    sq = queries[:SLAB].contiguous()
+    iss_rows = iss_db[:32768].contiguous()
+    iss_sq = iss_q[:64].contiguous()
+    ids1 = cand[1][:SLAB].contiguous()
+    ids4 = cand[4][:SLAB].contiguous()
+    c64, ids64 = db[cand[1][:64].clamp_min(0).long()], cand[1][:64].contiguous()
+    mask64 = ids64 >= 0
+    for k in any_k:
+        err = {}
+        got = index.search(sq, SearchParams(k=k))
+        err["rpf"] = compare_topk(torch, got, index.search(
+            sq, SearchParams(k=k + 1, mode="ref")), k)
+        check_scores(torch, METRICS["l2"], sq, db, got)
+        got = index8.search(sq, SearchParams(k=k, n_probes=4, expand=EXPAND))
+        err["rpf+int8"] = compare_topk(torch, got, int8_plain(sq, 4, k), k)
+        check_scores(torch, METRICS["l2"], sq, db, got)
+        got = bidx.search(sq, SearchParams(k=k))
+        err["bruteforce"] = compare_topk(torch, got, bidx.search(
+            sq, SearchParams(k=k + 1, mode="ref")), k)
+        for m in ("l2", "dot"):
+            want = ref.matmul_topk_ref(sq, db, k + 1, m)
+            err[f"topk_{m}"] = compare_topk(
+                torch, ops.topk(sq, db, k, m), want, k,
+                tol=expansion_tol(torch, sq, db, want[1]))
+        err["topk_chi2"] = compare_topk(
+            torch, ops.topk(iss_sq, iss_rows, k, "chi2"),
+            ref.chi2_topk_ref(iss_sq, iss_rows, k + 1), k)
+        err["rerank_candidates"] = compare_topk(
+            torch, ops.rerank_candidates(queries[:64], c64, ids64, mask64, k),
+            ref.distance_topk_ref(queries[:64], c64, ids64, mask64, k + 1), k)
+        any_err[k] = err
+        # each kernel's k = 10 output is its k's first 10 columns, bitwise
+        for name, fn in (
+                ("fused_gather_topk", lambda kk: fused_gather_topk(
+                    sq, ids1, db, kk)),
+                ("fused_gather_topk_int8", lambda kk: fused_gather_topk_int8(
+                    sq, ids4, qdb.q, qdb.scale, 4 * kk)),
+                ("matmul_topk", lambda kk: matmul_topk(sq, db, kk)),
+                ("chi2_topk", lambda kk: chi2_topk(iss_sq, iss_rows, kk)),
+                ("distance_topk", lambda kk: distance_topk(
+                    queries[:64], c64, ids64, mask64, kk)),
+                ("fused_scan", lambda kk: fused_scan(sq, db, kk))):
+            big, small = fn(k), fn(K)
+            w = small[0].shape[1]
+            check(bitwise((big[0][:, :w].contiguous(),
+                           big[1][:, :w].contiguous()), small),
+                  f"{name}'s k = {K} output is not the prefix of its k = {k}")
+    del c64
+    emit({"phase": "anyk", "k": list(any_k), "max_abs_err": any_err,
+          "prefix_bitwise": ["fused_gather_topk", "fused_gather_topk_int8",
+                             "matmul_topk", "chi2_topk", "distance_topk",
+                             "fused_scan"]})
 
     # ---- shared by the timings below ----------------------------------------
     rate = mem_rate(card)
@@ -1133,19 +1246,6 @@ def main():
                     q[lo:hi], ids[lo:hi], rows, K, metric), b, 256),
                 5, flush),
             **bound(nbytes, *ops_)})
-    # the bruteforce backend: kernel B at M = N.  Its bound reads each
-    # input once; were no row reused between queries, every (query, row)
-    # pair would read the row from memory
-    bq_, bn_, bd_ = queries.shape[0], db.shape[0], db.shape[1]
-    brute_row = {
-        "search_ms": time_ms(torch, lambda: bidx.search(
-            queries, SearchParams(k=K)), 3, flush, warm=1),
-        "plain_ms": time_ms(torch, lambda: bidx.search(
-            queries, SearchParams(k=K, mode="ref")), 1, flush, warm=1),
-        **bound(bn_ * bd_ * 4 + bq_ * bn_ * 4 + bq_ * bd_ * 4 + bq_ * K * 8,
-                3 * bq_ * bn_ * bd_),
-        "no_reuse_ms": bq_ * bn_ * bd_ * 4 / rate * 1e3}
-
     # int8 rerank: each valid slot reads d + 4 bytes; dequantize, subtract,
     # multiply-add: 4 operations per element
     int8_rows = []
@@ -1166,6 +1266,7 @@ def main():
             **bound(nbytes, 4 * valid * db.shape[1])})
 
     # exact scans: each input read once; D does 2 B N d flops
+    bq_, bn_, bd_ = queries.shape[0], db.shape[0], db.shape[1]
     d_row = {
         "ms": time_ms(torch, lambda: matmul_topk(queries, db, K, "l2"), 10,
                       flush),
@@ -1177,6 +1278,30 @@ def main():
                                           flush),
         **bound((bq_ + bn_) * (bd_ + 1) * 4 + bq_ * K * 8,
                 2 * bq_ * bn_ * bd_)}
+    # the bruteforce backend: kernel B's scan at M = N.  Its bound reads
+    # each input once; each pair-element costs l2 an FADD and an FFMA: 3
+    # flops over the fp32 peak, or 2 fp32 issues over the issue rate (half
+    # the peak), the larger.  The gather at M = N (the earlier path, and
+    # what the scan must equal) re-reads the rows for every query: were no
+    # row reused, every pair would read its row from memory
+    all_ids = torch.arange(bn_, dtype=torch.int32, device=dev).expand(
+        bq_, -1).contiguous()
+    brute_row = {
+        "search_ms": time_ms(torch, lambda: bidx.search(
+            queries, SearchParams(k=K)), 10, flush, warm=1),
+        "scan_ms": time_ms(torch, lambda: fused_scan(queries, db, K), 10,
+                           flush, warm=1),
+        "gather_ms": time_ms(torch, lambda: fused_gather_topk(
+            queries, all_ids, db, K), 3, flush, warm=1),
+        "kernel_d_ms": d_row["ms"],
+        "plain_ms": time_ms(torch, lambda: bidx.search(
+            queries, SearchParams(k=K, mode="ref")), 1, flush, warm=1),
+        **bound(bn_ * bd_ * 4 + bq_ * bd_ * 4 + bq_ * K * 8,
+                3 * bq_ * bn_ * bd_),
+        "issue_bound_ms": 2 * bq_ * bn_ * bd_ / (FP32_FLOPS / 2) * 1e3,
+        "no_reuse_ms": bq_ * bn_ * bd_ * 4 / rate * 1e3}
+    del all_ids
+
     ib, in_, id_ = iss_q.shape[0], iss_db.shape[0], iss_db.shape[1]
     # the share of terms whose q and c are both 0 (0 / 1e-12: the IEEE
     # division's slow path)
@@ -1247,6 +1372,20 @@ def main():
          "bound_ms": f1["bound_ms"], "bound_by": f1["bound_by"],
          "library_ms": None, "shapes": fused_rows,
          "bruteforce": brute_row},
+        {"name": "fused_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_scan.cu",
+         "replaces": "src/repro/kernels/fused_query.py:146",
+         "launches": total("fused_scan"),
+         "launches_by_path": by_path("fused_scan"),
+         "max_abs_err": max([brute_err["bruteforce"]]
+                            + [e["bruteforce"] for e in any_err.values()]),
+         "bitwise_vs_gather": True, "ms": brute_row["scan_ms"],
+         "plain_ms": brute_row["plain_ms"],
+         "bound_ms": max(brute_row["bound_ms"], brute_row["issue_bound_ms"]),
+         "bound_by": "operations", "flop_bound_ms": brute_row["bound_ms"],
+         "issue_bound_ms": brute_row["issue_bound_ms"],
+         "gather_same_function_ms": brute_row["gather_ms"],
+         "library_ms": None},
         {"name": "fused_gather_topk_int8", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_query_int8.cu",
          "replaces": "src/repro/kernels/fused_query_int8.py:152",

@@ -10,7 +10,9 @@
 //   so ties go to the smaller id; +inf / -1 past N and for +inf scores.
 //   Each term is t = q - c; t * t / ((q + c) + 1e-12) with IEEE division
 //   (no fast math), and a pair's terms are added in d order, so the scores
-//   are bitwise those of a d-ordered fp32 sum.
+//   are bitwise those of a d-ordered fp32 sum.  k <= KMAX; a larger k takes
+//   rounds (kernels/common.py topk_rounds): lo_d / lo_i, when given, are
+//   each query's exclusive lower key (score, id).
 //
 // What bounds it on an H100: operations.  Every (query, row) pair costs d
 // terms (1.5e11 against ISS-595 at 1024 queries), each a full IEEE
@@ -52,6 +54,7 @@
 
 #include <algorithm>
 
+#include "cp_async.cuh"
 #include "merge_slices.cuh"
 
 #define BQ 128          // queries a tile: 4 a lane
@@ -65,24 +68,6 @@
 #define KMAX 128
 #define MAX_SLICES 32
 #define EPS 1e-12f
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-// 4 bytes from src, or zeros where `bytes` is 0 (nothing is read then)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // one term, with IEEE division: t = a - c; t * t / ((a + c) + EPS)
 __device__ __forceinline__ float chi2_term(float a, float c) {
@@ -106,9 +91,13 @@ __global__ void chi2_stage_queries(const float* __restrict__ q, float* __restric
   }
 }
 
+// ROUNDS: the launch is a later round of a larger k (a lower key is given);
+// the others compile without the lower-key test
+template <bool ROUNDS>
 __global__ void __launch_bounds__(THREADS, 2)
     chi2_scan_kernel(const float* __restrict__ qt, const float* __restrict__ tt,
-                     const float* __restrict__ db, float* __restrict__ part_d,
+                     const float* __restrict__ db, const float* __restrict__ lo_d,
+                     const int* __restrict__ lo_i, float* __restrict__ part_d,
                      int* __restrict__ part_i, int B, int N, int d, int d_pad, int k,
                      int n_slices, int rows_per_slice, int final_out) {
   extern __shared__ __align__(16) float smem[];
@@ -132,6 +121,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   for (int e = tid; e < BQ * k; e += THREADS) {  // distinct (+inf, beyond-N) keys
     run_d[e] = INFINITY;
     run_i[e] = N + e / BQ;
+  }
+  // the exclusive lower keys of this lane's queries
+  float low_d[QR];
+  int low_i[QR];
+#pragma unroll
+  for (int i = 0; i < QR; ++i) {
+    const int gq = q0 + lane * QR + i;
+    low_d[i] = ROUNDS && gq < B ? lo_d[gq] : 0.f;
+    low_i[i] = ROUNDS && gq < B ? lo_i[gq] : 0;
   }
 
   const int n_chunks = d_pad / DK;
@@ -234,7 +232,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       const bool q_ok = q0 + lane * QR + i < B;
 #pragma unroll
       for (int j = 0; j < RR; ++j)
-        mine |= q_ok && r0 + j < hi && lex_less(acc[i][j], r0 + j, kd, ki);
+        mine |= q_ok && r0 + j < hi && lex_less(acc[i][j], r0 + j, kd, ki) &&
+                (!ROUNDS || lex_less(low_d[i], low_i[i], acc[i][j], r0 + j));
     }
     if (__syncthreads_or(mine)) {
       for (int w = 0; w < WARPS; ++w) {
@@ -248,7 +247,9 @@ __global__ void __launch_bounds__(THREADS, 2)
             for (int j = 0; j < RR; ++j) {
               const float s = acc[i][j];
               const int id = r0 + j;
-              if (id >= hi || !lex_less(s, id, rd[(k - 1) * BQ], ri[(k - 1) * BQ])) continue;
+              if (id >= hi || !lex_less(s, id, rd[(k - 1) * BQ], ri[(k - 1) * BQ]) ||
+                  (ROUNDS && !lex_less(low_d[i], low_i[i], s, id)))
+                continue;
               int pos = k - 1;
               while (pos > 0 && lex_less(s, id, rd[(pos - 1) * BQ], ri[(pos - 1) * BQ])) {
                 rd[pos * BQ] = rd[(pos - 1) * BQ];
@@ -287,11 +288,51 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // qt, tt: scratch of (ceil(B / 128), d_pad, 128) f32 each, d_pad = d
-// rounded up to a multiple of 32 (at least 32); part_d / part_i: scratch of
-// (B, max_slices, k) for the slices' lists.
-extern "C" int chi2_topk(const void* q, const void* db, void* qt, void* tt, void* part_d,
-                         void* part_i, void* out_d, void* out_i, int B, int N, int d, int k,
-                         int max_slices, void* stream) {
+// rounded up to a multiple of 32 (at least 32); lo_d / lo_i (B,) may be null
+// (no lower key); part_d / part_i: scratch of (B, max_slices, k) for the
+// slices' lists.
+// the scan kernel's launch: row slices sized so that one wave of blocks
+// fills the card, then the merge of the slices' lists
+template <bool ROUNDS>
+static int launch_scan(const float* qtf, const float* ttf, const float* db, const float* ld,
+                       const int* li, float* part_d, int* part_i, float* out_d, int* out_i,
+                       int B, int N, int d, int d_pad, int k, int max_slices, cudaStream_t s) {
+  auto kernel = chi2_scan_kernel<ROUNDS>;
+  const int q_tiles = (B + BQ - 1) / BQ;
+  const int dyn = (4 * DK * BQ + 2 * DK * CS_STRIDE) * 4 + BQ * k * 8;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return (int)err;
+  // slices: one wave of blocks over the card, at most one per 64-row tile
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, dyn);
+  if (err != cudaSuccess) return (int)err;
+  const int row_tiles = (N + BN - 1) / BN;
+  int sl = std::max(1, per_sm * n_sm / q_tiles);
+  sl = std::min(std::min(sl, max_slices), row_tiles);
+  const int tiles_per_slice = (row_tiles + sl - 1) / sl;
+  const int rows_per_slice = tiles_per_slice * BN;
+  sl = (row_tiles + tiles_per_slice - 1) / tiles_per_slice;  // no empty slice
+  const dim3 grid(q_tiles, sl);
+  if (sl == 1) {
+    kernel<<<grid, THREADS, dyn, s>>>(qtf, ttf, db, ld, li, out_d, out_i, B, N, d, d_pad, k, 1,
+                                      rows_per_slice, 1);
+    return (int)cudaGetLastError();
+  }
+  kernel<<<grid, THREADS, dyn, s>>>(qtf, ttf, db, ld, li, part_d, part_i, B, N, d, d_pad, k, sl,
+                                    rows_per_slice, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  merge_slices_kernel<<<(B + WARPS - 1) / WARPS, THREADS, 0, s>>>(part_d, part_i, out_d, out_i,
+                                                                 B, k, sl);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int chi2_topk(const void* q, const void* db, void* qt, void* tt, const void* lo_d,
+                         const void* lo_i, void* part_d, void* part_i, void* out_d, void* out_i,
+                         int B, int N, int d, int k, int max_slices, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   if (k < 1 || k > KMAX || N < 1 || d < 0 || max_slices < 1 || max_slices > MAX_SLICES)
     return (int)cudaErrorInvalidValue;
@@ -304,36 +345,13 @@ extern "C" int chi2_topk(const void* q, const void* db, void* qt, void* tt, void
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int dyn = (4 * DK * BQ + 2 * DK * CS_STRIDE) * 4 + BQ * k * 8;
-  err = cudaFuncSetAttribute(chi2_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err != cudaSuccess) return (int)err;
-  // slices: one wave of blocks over the card, at most one per 64-row tile
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chi2_scan_kernel, THREADS, dyn);
-  if (err != cudaSuccess) return (int)err;
-  const int row_tiles = (N + BN - 1) / BN;
-  int sl = std::max(1, per_sm * n_sm / q_tiles);
-  sl = std::min(std::min(sl, max_slices), row_tiles);
-  const int tiles_per_slice = (row_tiles + sl - 1) / sl;
-  const int rows_per_slice = tiles_per_slice * BN;
-  sl = (row_tiles + tiles_per_slice - 1) / tiles_per_slice;  // no empty slice
-  const dim3 grid(q_tiles, sl);
   const float* qtf = (const float*)qt;
   const float* ttf = (const float*)tt;
-  if (sl == 1) {
-    chi2_scan_kernel<<<grid, THREADS, dyn, s>>>(qtf, ttf, (const float*)db, (float*)out_d,
-                                                (int*)out_i, B, N, d, d_pad, k, 1,
-                                                rows_per_slice, 1);
-    return (int)cudaGetLastError();
-  }
-  chi2_scan_kernel<<<grid, THREADS, dyn, s>>>(qtf, ttf, (const float*)db, (float*)part_d,
-                                              (int*)part_i, B, N, d, d_pad, k, sl,
-                                              rows_per_slice, 0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  merge_slices_kernel<<<(B + WARPS - 1) / WARPS, THREADS, 0, s>>>(
-      (const float*)part_d, (const int*)part_i, (float*)out_d, (int*)out_i, B, k, sl);
-  return (int)cudaGetLastError();
+  const float* ld = (const float*)lo_d;
+  const int* li = (const int*)lo_i;
+  if (ld != nullptr)
+    return launch_scan<true>(qtf, ttf, (const float*)db, ld, li, (float*)part_d, (int*)part_i,
+                             (float*)out_d, (int*)out_i, B, N, d, d_pad, k, max_slices, s);
+  return launch_scan<false>(qtf, ttf, (const float*)db, ld, li, (float*)part_d, (int*)part_i,
+                            (float*)out_d, (int*)out_i, B, N, d, d_pad, k, max_slices, s);
 }

@@ -13,7 +13,11 @@
 //   lexsort does (equal (score, id) pairs, repeats of one id, fall back to
 //   the slot, which changes nothing in the output); +inf / -1 where fewer
 //   than k slots are valid, or k > M.  chi2 is sum (q - c)^2 / (q + c +
-//   1e-12) with IEEE division (no fast math), as kernels B and E.
+//   1e-12) with IEEE division (no fast math), as kernels B and E.  k <=
+//   KMAX; a larger k takes rounds (kernels/common.py topk_rounds): lo_d /
+//   lo_i / lo_s, when given, are each query's exclusive lower key (score,
+//   id, slot), and last_s, when given, receives each query's k-th slot
+//   (its k-th id is in out_i), the next round's key.
 //
 // What bounds it on an H100: bytes.  Each valid slot's row (d x 4 B) is read
 // once and nothing reuses it; the arithmetic is 3 flops an element for l2.
@@ -50,11 +54,15 @@ __device__ __forceinline__ bool key_less(float da, int ia, int sa, float db, int
   return da < db || (da == db && (ia < ib || (ia == ib && sa < sb)));
 }
 
-template <int METRIC, bool VEC4>
+// ROUNDS: the launch is a round of a larger k (a lower key or last_s is
+// given); a single-round launch compiles without the lower-key test
+template <int METRIC, bool VEC4, bool ROUNDS>
 __global__ void __launch_bounds__(THREADS)
     distance_topk_kernel(const float* __restrict__ q, const float* __restrict__ cand,
                          const int* __restrict__ ids, const unsigned char* __restrict__ mask,
-                         float* __restrict__ out_d, int* __restrict__ out_i, int M, int d,
+                         const float* __restrict__ lo_d, const int* __restrict__ lo_i,
+                         const int* __restrict__ lo_s, float* __restrict__ out_d,
+                         int* __restrict__ out_i, int* __restrict__ last_s, int M, int d,
                          int k) {
   extern __shared__ __align__(16) float qs[];
   __shared__ float tile_d[TILE];
@@ -117,8 +125,8 @@ __global__ void __launch_bounds__(THREADS)
       const float s = tile_d[tid];
       const int id = tile_i[tid];
       const int slot = base + tid;
-      if (isfinite(s) &&
-          key_less(s, id, slot, run_d[k - 1], run_i[k - 1], run_s[k - 1])) {
+      if (isfinite(s) && key_less(s, id, slot, run_d[k - 1], run_i[k - 1], run_s[k - 1]) &&
+          (!ROUNDS || lo_d == nullptr || key_less(lo_d[b], lo_i[b], lo_s[b], s, id, slot))) {
         const int pos = atomicAdd(&n_surv, 1);
         surv_d[pos] = s;
         surv_i[pos] = id;
@@ -170,48 +178,72 @@ __global__ void __launch_bounds__(THREADS)
     const float s = run_d[tid];
     out_d[(size_t)b * k + tid] = s;
     out_i[(size_t)b * k + tid] = isinf(s) ? -1 : run_i[tid];
+    if (ROUNDS && last_s != nullptr && tid == k - 1) last_s[b] = run_s[tid];
   }
 }
 
-template <int METRIC, bool VEC4>
+template <int METRIC, bool VEC4, bool ROUNDS>
 static int launch(const float* q, const float* cand, const int* ids,
-                  const unsigned char* mask, float* out_d, int* out_i, int B, int M, int d,
+                  const unsigned char* mask, const float* lo_d, const int* lo_i,
+                  const int* lo_s, float* out_d, int* out_i, int* last_s, int B, int M, int d,
                   int k, cudaStream_t stream) {
-  auto kernel = distance_topk_kernel<METRIC, VEC4>;
+  auto kernel = distance_topk_kernel<METRIC, VEC4, ROUNDS>;
   const size_t smem = (size_t)d * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<B, THREADS, smem, stream>>>(q, cand, ids, mask, out_d, out_i, M, d, k);
+  kernel<<<B, THREADS, smem, stream>>>(q, cand, ids, mask, lo_d, lo_i, lo_s, out_d, out_i,
+                                       last_s, M, d, k);
   return (int)cudaGetLastError();
+}
+
+template <int METRIC, bool ROUNDS>
+static int launch_vec(const float* q, const float* cand, const int* ids,
+                      const unsigned char* mask, const float* ld, const int* li, const int* ls,
+                      float* out_d, int* out_i, int* os, int B, int M, int d, int k,
+                      cudaStream_t s) {
+  if (d % 4 == 0 && (uintptr_t)cand % 16 == 0)
+    return launch<METRIC, true, ROUNDS>(q, cand, ids, mask, ld, li, ls, out_d, out_i, os, B, M,
+                                        d, k, s);
+  return launch<METRIC, false, ROUNDS>(q, cand, ids, mask, ld, li, ls, out_d, out_i, os, B, M,
+                                       d, k, s);
 }
 
 template <int METRIC>
 static int launch_metric(const float* q, const float* cand, const int* ids,
-                         const unsigned char* mask, float* out_d, int* out_i, int B, int M,
-                         int d, int k, cudaStream_t s) {
-  if (d % 4 == 0 && (uintptr_t)cand % 16 == 0)
-    return launch<METRIC, true>(q, cand, ids, mask, out_d, out_i, B, M, d, k, s);
-  return launch<METRIC, false>(q, cand, ids, mask, out_d, out_i, B, M, d, k, s);
+                         const unsigned char* mask, const float* ld, const int* li,
+                         const int* ls, float* out_d, int* out_i, int* os, int B, int M, int d,
+                         int k, cudaStream_t s) {
+  if (ld != nullptr || os != nullptr)
+    return launch_vec<METRIC, true>(q, cand, ids, mask, ld, li, ls, out_d, out_i, os, B, M, d,
+                                    k, s);
+  return launch_vec<METRIC, false>(q, cand, ids, mask, ld, li, ls, out_d, out_i, os, B, M, d, k,
+                                   s);
 }
 
+// lo_d / lo_i / lo_s (B,) may be null (no lower key); last_s (B,) may be null
 extern "C" int distance_topk(const void* q, const void* cand, const void* ids,
-                             const void* mask, void* out_d, void* out_i, int B, int M, int d,
-                             int k, int metric, void* stream) {
+                             const void* mask, const void* lo_d, const void* lo_i,
+                             const void* lo_s, void* out_d, void* out_i, void* last_s, int B,
+                             int M, int d, int k, int metric, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   if (k < 1 || k > KMAX || d < 1) return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* cf = (const float*)cand;
   const int* ii = (const int*)ids;
   const unsigned char* mm = (const unsigned char*)mask;
+  const float* ld = (const float*)lo_d;
+  const int* li = (const int*)lo_i;
+  const int* ls = (const int*)lo_s;
   float* od = (float*)out_d;
   int* oi = (int*)out_i;
+  int* os = (int*)last_s;
   cudaStream_t s = (cudaStream_t)stream;
   switch (metric) {
-    case L2: return launch_metric<L2>(qf, cf, ii, mm, od, oi, B, M, d, k, s);
-    case CHI2: return launch_metric<CHI2>(qf, cf, ii, mm, od, oi, B, M, d, k, s);
+    case L2: return launch_metric<L2>(qf, cf, ii, mm, ld, li, ls, od, oi, os, B, M, d, k, s);
+    case CHI2: return launch_metric<CHI2>(qf, cf, ii, mm, ld, li, ls, od, oi, os, B, M, d, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

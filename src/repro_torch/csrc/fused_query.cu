@@ -12,7 +12,12 @@
 //   finite distance.  The metric (l2, dot negated, chi2, cosine) is a
 //   template parameter.  Cosine divides the dot product by the two norms
 //   where the reference normalizes both vectors first: the same value, other
-//   rounding.
+//   rounding.  k <= KMAX; a larger k takes rounds (kernels/common.py
+//   topk_rounds): lo_d / lo_s, when given, are each query's exclusive lower
+//   key (score, slot) and a slot at or before it takes no place; last_s,
+//   when given, receives each query's k-th slot, the next round's key.
+//   The per-pair arithmetic and its order are pair_score.cuh's, which the
+//   query-tiled scan (fused_scan.cu) shares.
 //
 // What bounds it on an H100: bytes.  Every valid slot reads one db row
 // (d x 4 B, 3,136 B at d = 784) that nothing else in the block reuses, and
@@ -29,28 +34,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "pair_score.cuh"
+
 #define THREADS 256
 #define TILE 256
 #define KMAX 128
-#define EPS 1e-12f
-
-enum Metric { L2 = 0, DOT = 1, CHI2 = 2, COSINE = 3 };
-
-template <int METRIC>
-__device__ __forceinline__ void accum(float x, float y, float& a, float& c) {
-  if (METRIC == L2) {
-    const float t = x - y;
-    a += t * t;
-  } else if (METRIC == DOT) {
-    a += x * y;
-  } else if (METRIC == CHI2) {
-    const float t = x - y;
-    a += t * t / (x + y + EPS);
-  } else {
-    a += x * y;
-    c += y * y;
-  }
-}
 
 __device__ __forceinline__ bool lex_less(float da, int sa, float db, int sb) {
   return da < db || (da == db && sa < sb);
@@ -60,8 +48,11 @@ template <int METRIC, bool VEC4>
 __global__ void fused_gather_topk_kernel(const float* __restrict__ q,
                                          const int* __restrict__ ids,
                                          const float* __restrict__ db,
+                                         const float* __restrict__ lo_d,
+                                         const int* __restrict__ lo_s,
                                          float* __restrict__ out_d,
-                                         int* __restrict__ out_i, int M, int N,
+                                         int* __restrict__ out_i,
+                                         int* __restrict__ last_s, int M, int N,
                                          int d, int k) {
   extern __shared__ float qs[];
   __shared__ float tile_d[TILE];
@@ -86,13 +77,14 @@ __global__ void fused_gather_topk_kernel(const float* __restrict__ q,
   __syncthreads();
   if (METRIC == COSINE) {
     if (warp == 0) {
-      float s = 0.f;
-      for (int c = lane; c < d; c += 32) s += qs[c] * qs[c];
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float s = warp_sum(norm_partial(qs, d, lane));
       if (lane == 0) q_norm = sqrtf(s) + EPS;
     }
     __syncthreads();
   }
+  const bool lower = lo_d != nullptr;
+  const float low_d = lower ? lo_d[b] : 0.f;
+  const int low_s = lower ? lo_s[b] : 0;
 
   for (int base = 0; base < M; base += TILE) {
     // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
@@ -104,29 +96,10 @@ __global__ void fused_gather_topk_kernel(const float* __restrict__ q,
       if (id < 0) continue;  // empty slot: no load, scores +inf
       const float* row = db + (size_t)min(id, N - 1) * d;
       float a = 0.f, cc = 0.f;
-      if (VEC4) {
-        const float4* r4 = reinterpret_cast<const float4*>(row);
-        const float4* q4 = reinterpret_cast<const float4*>(qs);
-        for (int c = lane; c < (d >> 2); c += 32) {
-          const float4 y = __ldg(r4 + c);
-          const float4 x = q4[c];
-          accum<METRIC>(x.x, y.x, a, cc);
-          accum<METRIC>(x.y, y.y, a, cc);
-          accum<METRIC>(x.z, y.z, a, cc);
-          accum<METRIC>(x.w, y.w, a, cc);
-        }
-      } else {
-        for (int c = lane; c < d; c += 32) accum<METRIC>(qs[c], __ldg(row + c), a, cc);
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, o);
-        if (METRIC == COSINE) cc += __shfl_xor_sync(0xffffffffu, cc, o);
-      }
-      if (lane == i) {
-        if (METRIC == DOT) my_score = -a;
-        else if (METRIC == COSINE) my_score = 1.f - a / (q_norm * (sqrtf(cc) + EPS));
-        else my_score = a;
-      }
+      lane_partial<METRIC, VEC4>(qs, row, d, lane, a, cc);
+      a = warp_sum(a);
+      if (METRIC == COSINE) cc = warp_sum(cc);
+      if (lane == i) my_score = finish<METRIC>(a, cc, q_norm);
     }
     tile_d[tid] = my_score;
     __syncthreads();
@@ -135,7 +108,8 @@ __global__ void fused_gather_topk_kernel(const float* __restrict__ q,
     {
       const float s = tile_d[tid];
       const int slot = base + tid;
-      if (slot < M && isfinite(s) && lex_less(s, slot, run_d[k - 1], run_s[k - 1])) {
+      if (slot < M && isfinite(s) && (!lower || lex_less(low_d, low_s, s, slot)) &&
+          lex_less(s, slot, run_d[k - 1], run_s[k - 1])) {
         const int pos = atomicAdd(&n_surv, 1);
         surv_d[pos] = s;
         surv_s[pos] = slot;
@@ -182,12 +156,14 @@ __global__ void fused_gather_topk_kernel(const float* __restrict__ q,
     const float s = run_d[tid];
     out_d[(size_t)b * k + tid] = s;
     out_i[(size_t)b * k + tid] = isinf(s) ? -1 : ids_b[run_s[tid]];
+    if (last_s != nullptr && tid == k - 1) last_s[b] = run_s[tid];
   }
 }
 
 template <int METRIC, bool VEC4>
-static int launch(const float* q, const int* ids, const float* db, float* out_d,
-                  int* out_i, int B, int M, int N, int d, int k, cudaStream_t stream) {
+static int launch(const float* q, const int* ids, const float* db, const float* lo_d,
+                  const int* lo_s, float* out_d, int* out_i, int* last_s, int B, int M, int N,
+                  int d, int k, cudaStream_t stream) {
   auto kernel = fused_gather_topk_kernel<METRIC, VEC4>;
   const size_t smem = (size_t)d * sizeof(float);
   if (smem > 48 * 1024) {
@@ -195,32 +171,42 @@ static int launch(const float* q, const int* ids, const float* db, float* out_d,
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<B, THREADS, smem, stream>>>(q, ids, db, out_d, out_i, M, N, d, k);
+  kernel<<<B, THREADS, smem, stream>>>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, M, N, d,
+                                       k);
   return (int)cudaGetLastError();
 }
 
 template <int METRIC>
-static int launch_metric(const float* q, const int* ids, const float* db, float* out_d,
-                         int* out_i, int B, int M, int N, int d, int k, cudaStream_t s) {
-  if (d % 4 == 0) return launch<METRIC, true>(q, ids, db, out_d, out_i, B, M, N, d, k, s);
-  return launch<METRIC, false>(q, ids, db, out_d, out_i, B, M, N, d, k, s);
+static int launch_metric(const float* q, const int* ids, const float* db, const float* lo_d,
+                         const int* lo_s, float* out_d, int* out_i, int* last_s, int B, int M,
+                         int N, int d, int k, cudaStream_t s) {
+  if (d % 4 == 0)
+    return launch<METRIC, true>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, B, M, N, d, k, s);
+  return launch<METRIC, false>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, B, M, N, d, k, s);
 }
 
-extern "C" int fused_gather_topk(const void* q, const void* ids, const void* db, void* out_d,
-                                 void* out_i, int B, int M, int N, int d, int k, int metric,
+// lo_d / lo_s (B,) may be null (no lower key); last_s (B,) may be null
+extern "C" int fused_gather_topk(const void* q, const void* ids, const void* db,
+                                 const void* lo_d, const void* lo_s, void* out_d, void* out_i,
+                                 void* last_s, int B, int M, int N, int d, int k, int metric,
                                  void* stream) {
   if (B == 0) return (int)cudaSuccess;
+  if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const int* ii = (const int*)ids;
   const float* dbf = (const float*)db;
+  const float* ld = (const float*)lo_d;
+  const int* ls = (const int*)lo_s;
   float* od = (float*)out_d;
   int* oi = (int*)out_i;
+  int* os = (int*)last_s;
   cudaStream_t s = (cudaStream_t)stream;
   switch (metric) {
-    case L2: return launch_metric<L2>(qf, ii, dbf, od, oi, B, M, N, d, k, s);
-    case DOT: return launch_metric<DOT>(qf, ii, dbf, od, oi, B, M, N, d, k, s);
-    case CHI2: return launch_metric<CHI2>(qf, ii, dbf, od, oi, B, M, N, d, k, s);
-    case COSINE: return launch_metric<COSINE>(qf, ii, dbf, od, oi, B, M, N, d, k, s);
+    case L2: return launch_metric<L2>(qf, ii, dbf, ld, ls, od, oi, os, B, M, N, d, k, s);
+    case DOT: return launch_metric<DOT>(qf, ii, dbf, ld, ls, od, oi, os, B, M, N, d, k, s);
+    case CHI2: return launch_metric<CHI2>(qf, ii, dbf, ld, ls, od, oi, os, B, M, N, d, k, s);
+    case COSINE:
+      return launch_metric<COSINE>(qf, ii, dbf, ld, ls, od, oi, os, B, M, N, d, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,7 +11,10 @@
 //   smallest scores of the dequantized rows (q8 * scale, one rounded
 //   product) under the metric, in (score, slot) order so ties keep the
 //   earliest slot like the reference's lax.top_k; +inf / -1 where fewer
-//   than k slots score a finite distance.  k <= 512 (k' = expand * k).
+//   than k slots score a finite distance.  k <= KMAX = 512; a larger k
+//   takes rounds (kernels/common.py topk_rounds): lo_d / lo_s, when given,
+//   are each query's exclusive lower key (score, slot), and last_s, when
+//   given, receives each query's k-th slot, the next round's key.
 //
 // What bounds it on an H100: bytes.  Each valid slot reads d + 4 bytes
 // (the int8 row and its scale) that nothing else in the block reuses, and
@@ -65,8 +68,11 @@ __global__ void fused_gather_topk_int8_kernel(const float* __restrict__ q,
                                               const int* __restrict__ ids,
                                               const int8_t* __restrict__ q8,
                                               const float* __restrict__ scale,
+                                              const float* __restrict__ lo_d,
+                                              const int* __restrict__ lo_s,
                                               float* __restrict__ out_d,
-                                              int* __restrict__ out_i, int M, int N,
+                                              int* __restrict__ out_i,
+                                              int* __restrict__ last_s, int M, int N,
                                               int d, int k) {
   extern __shared__ __align__(16) float qs[];
   __shared__ float tile_d[TILE];
@@ -98,6 +104,9 @@ __global__ void fused_gather_topk_int8_kernel(const float* __restrict__ q,
     }
     __syncthreads();
   }
+  const bool lower = lo_d != nullptr;
+  const float low_d = lower ? lo_d[b] : 0.f;
+  const int low_s = lower ? lo_s[b] : 0;
 
   for (int base = 0; base < M; base += TILE) {
     // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
@@ -147,7 +156,8 @@ __global__ void fused_gather_topk_int8_kernel(const float* __restrict__ q,
     {
       const float s = tile_d[tid];
       const int slot = base + tid;
-      if (slot < M && isfinite(s) && lex_less(s, slot, run_d[k - 1], run_s[k - 1])) {
+      if (slot < M && isfinite(s) && (!lower || lex_less(low_d, low_s, s, slot)) &&
+          lex_less(s, slot, run_d[k - 1], run_s[k - 1])) {
         const int pos = atomicAdd(&n_surv, 1);
         surv_d[pos] = s;
         surv_s[pos] = slot;
@@ -200,13 +210,14 @@ __global__ void fused_gather_topk_int8_kernel(const float* __restrict__ q,
     const float s = run_d[r];
     out_d[(size_t)b * k + r] = s;
     out_i[(size_t)b * k + r] = isinf(s) ? -1 : ids_b[run_s[r]];
+    if (last_s != nullptr && r == k - 1) last_s[b] = run_s[r];
   }
 }
 
 template <int METRIC, bool VEC16>
 static int launch(const float* q, const int* ids, const int8_t* q8, const float* scale,
-                  float* out_d, int* out_i, int B, int M, int N, int d, int k,
-                  cudaStream_t stream) {
+                  const float* lo_d, const int* lo_s, float* out_d, int* out_i, int* last_s,
+                  int B, int M, int N, int d, int k, cudaStream_t stream) {
   auto kernel = fused_gather_topk_int8_kernel<METRIC, VEC16>;
   const size_t smem = (size_t)d * sizeof(float);
   if (smem > 48 * 1024 - 16 * 1024) {  // static tiles take 11 KB of the 48
@@ -214,38 +225,45 @@ static int launch(const float* q, const int* ids, const int8_t* q8, const float*
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<B, THREADS, smem, stream>>>(q, ids, q8, scale, out_d, out_i, M, N, d, k);
+  kernel<<<B, THREADS, smem, stream>>>(q, ids, q8, scale, lo_d, lo_s, out_d, out_i, last_s, M,
+                                       N, d, k);
   return (int)cudaGetLastError();
 }
 
 template <int METRIC>
 static int launch_metric(const float* q, const int* ids, const int8_t* q8, const float* sc,
-                         float* od, int* oi, int B, int M, int N, int d, int k,
-                         cudaStream_t s) {
+                         const float* ld, const int* ls, float* od, int* oi, int* os, int B,
+                         int M, int N, int d, int k, cudaStream_t s) {
   // 16-byte loads need every row on a 16-byte boundary
   if (d % 16 == 0 && ((uintptr_t)q8 & 15) == 0)
-    return launch<METRIC, true>(q, ids, q8, sc, od, oi, B, M, N, d, k, s);
-  return launch<METRIC, false>(q, ids, q8, sc, od, oi, B, M, N, d, k, s);
+    return launch<METRIC, true>(q, ids, q8, sc, ld, ls, od, oi, os, B, M, N, d, k, s);
+  return launch<METRIC, false>(q, ids, q8, sc, ld, ls, od, oi, os, B, M, N, d, k, s);
 }
 
+// lo_d / lo_s (B,) may be null (no lower key); last_s (B,) may be null
 extern "C" int fused_gather_topk_int8(const void* q, const void* ids, const void* q8,
-                                      const void* scale, void* out_d, void* out_i, int B,
-                                      int M, int N, int d, int k, int metric,
-                                      void* stream) {
+                                      const void* scale, const void* lo_d, const void* lo_s,
+                                      void* out_d, void* out_i, void* last_s, int B, int M,
+                                      int N, int d, int k, int metric, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const int* ii = (const int*)ids;
   const int8_t* q8b = (const int8_t*)q8;
   const float* sc = (const float*)scale;
+  const float* ld = (const float*)lo_d;
+  const int* ls = (const int*)lo_s;
   float* od = (float*)out_d;
   int* oi = (int*)out_i;
+  int* os = (int*)last_s;
   cudaStream_t s = (cudaStream_t)stream;
   switch (metric) {
-    case L2: return launch_metric<L2>(qf, ii, q8b, sc, od, oi, B, M, N, d, k, s);
-    case DOT: return launch_metric<DOT>(qf, ii, q8b, sc, od, oi, B, M, N, d, k, s);
-    case CHI2: return launch_metric<CHI2>(qf, ii, q8b, sc, od, oi, B, M, N, d, k, s);
-    case COSINE: return launch_metric<COSINE>(qf, ii, q8b, sc, od, oi, B, M, N, d, k, s);
+    case L2: return launch_metric<L2>(qf, ii, q8b, sc, ld, ls, od, oi, os, B, M, N, d, k, s);
+    case DOT: return launch_metric<DOT>(qf, ii, q8b, sc, ld, ls, od, oi, os, B, M, N, d, k, s);
+    case CHI2:
+      return launch_metric<CHI2>(qf, ii, q8b, sc, ld, ls, od, oi, os, B, M, N, d, k, s);
+    case COSINE:
+      return launch_metric<COSINE>(qf, ii, q8b, sc, ld, ls, od, oi, os, B, M, N, d, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,7 +9,9 @@
 //   q (B, d) f32, db (N, d) f32 -> out_d (B, k) f32, out_i (B, k) int32:
 //   the k smallest scores in (score, id) order, so ties go to the smaller
 //   id; +inf / -1 past N.  l2 is |q|^2 - 2 q.c + |c|^2 (not clamped), with
-//   |q|^2 and |c|^2 given as (B,) and (N,) vectors; dot is -q.c.
+//   |q|^2 and |c|^2 given as (B,) and (N,) vectors; dot is -q.c.  k <=
+//   KMAX; a larger k takes rounds (kernels/common.py topk_rounds): lo_d /
+//   lo_i, when given, are each query's exclusive lower key (score, id).
 //
 // What bounds it on an H100: operations.  Every (query, row) pair costs d
 // multiply-adds (96 GFLOP for 1024 queries against MNIST-784), while the
@@ -42,10 +44,13 @@
 
 enum Metric { L2 = 0, DOT = 1 };
 
-template <int METRIC>
+// ROUNDS: the launch is a later round of a larger k (a lower key is given);
+// the others compile without the lower-key test
+template <int METRIC, bool ROUNDS>
 __global__ void __launch_bounds__(THREADS)
     scan_topk_kernel(const float* __restrict__ q, const float* __restrict__ db,
                      const float* __restrict__ q_sq, const float* __restrict__ db_sq,
+                     const float* __restrict__ lo_d, const int* __restrict__ lo_i,
                      float* __restrict__ part_d, int* __restrict__ part_i, int B, int N,
                      int d, int k, int n_slices, int rows_per_slice, int final_out) {
   __shared__ __align__(16) float qs[DK][BQ + 4];
@@ -130,6 +135,8 @@ __global__ void __launch_bounds__(THREADS)
       int* ri = run_i + qi * k;
       const float kd = rd[k - 1];
       const int ki = ri[k - 1];
+      const float low_d = ROUNDS ? lo_d[q0 + qi] : 0.f;
+      const int low_i = ROUNDS ? lo_i[q0 + qi] : 0;
       float s[4];
       int id[4];
       unsigned m[4];
@@ -139,7 +146,8 @@ __global__ void __launch_bounds__(THREADS)
         id[j] = r0 + lane + 32 * j;
         if (METRIC == L2) s[j] = my_qsq[i] - 2.f * acc[i][j] + csq[j];
         else s[j] = -acc[i][j];
-        const bool keep = id[j] < hi && lex_less(s[j], id[j], kd, ki);
+        const bool keep = id[j] < hi && (!ROUNDS || lex_less(low_d, low_i, s[j], id[j])) &&
+                          lex_less(s[j], id[j], kd, ki);
         m[j] = __ballot_sync(0xffffffffu, keep);
         ns += __popc(m[j]);
       }
@@ -212,11 +220,11 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int METRIC>
+template <int METRIC, bool ROUNDS>
 static int launch(const float* q, const float* db, const float* q_sq, const float* db_sq,
-                  float* part_d, int* part_i, float* out_d, int* out_i, int B, int N, int d,
-                  int k, int max_slices, cudaStream_t stream) {
-  auto kernel = scan_topk_kernel<METRIC>;
+                  const float* lo_d, const int* lo_i, float* part_d, int* part_i, float* out_d,
+                  int* out_i, int B, int N, int d, int k, int max_slices, cudaStream_t stream) {
+  auto kernel = scan_topk_kernel<METRIC, ROUNDS>;
   const int dyn = (BQ * k + WARPS * k) * 8 + WARPS * BN * 8;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
@@ -237,22 +245,24 @@ static int launch(const float* q, const float* db, const float* q_sq, const floa
   s = (row_tiles + tiles_per_slice - 1) / tiles_per_slice;  // no empty slice
   const dim3 grid(q_tiles, s);
   if (s == 1) {
-    kernel<<<grid, THREADS, dyn, stream>>>(q, db, q_sq, db_sq, out_d, out_i, B, N, d, k, 1,
-                                           rows_per_slice, 1);
+    kernel<<<grid, THREADS, dyn, stream>>>(q, db, q_sq, db_sq, lo_d, lo_i, out_d, out_i, B, N, d,
+                                           k, 1, rows_per_slice, 1);
     return (int)cudaGetLastError();
   }
-  kernel<<<grid, THREADS, dyn, stream>>>(q, db, q_sq, db_sq, part_d, part_i, B, N, d, k, s,
-                                         rows_per_slice, 0);
+  kernel<<<grid, THREADS, dyn, stream>>>(q, db, q_sq, db_sq, lo_d, lo_i, part_d, part_i, B, N,
+                                         d, k, s, rows_per_slice, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   merge_slices_kernel<<<(B + WARPS - 1) / WARPS, THREADS, 0, stream>>>(part_d, part_i, out_d,
                                                                       out_i, B, k, s);
   return (int)cudaGetLastError();
 }
 
-// part_d / part_i: scratch of (B, max_slices, k) for the slices' lists.
+// lo_d / lo_i (B,) may be null (no lower key); part_d / part_i: scratch of
+// (B, max_slices, k) for the slices' lists.
 extern "C" int scan_topk(const void* q, const void* db, const void* q_sq, const void* db_sq,
-                         void* part_d, void* part_i, void* out_d, void* out_i, int B, int N,
-                         int d, int k, int max_slices, int metric, void* stream) {
+                         const void* lo_d, const void* lo_i, void* part_d, void* part_i,
+                         void* out_d, void* out_i, int B, int N, int d, int k, int max_slices,
+                         int metric, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   if (k < 1 || k > KMAX || N < 1 || max_slices < 1 || max_slices > MAX_SLICES)
     return (int)cudaErrorInvalidValue;
@@ -260,14 +270,24 @@ extern "C" int scan_topk(const void* q, const void* db, const void* q_sq, const 
   const float* dbf = (const float*)db;
   const float* qsq = (const float*)q_sq;
   const float* dsq = (const float*)db_sq;
+  const float* ld = (const float*)lo_d;
+  const int* li = (const int*)lo_i;
   float* pd = (float*)part_d;
   int* pi = (int*)part_i;
   float* od = (float*)out_d;
   int* oi = (int*)out_i;
   cudaStream_t s = (cudaStream_t)stream;
   switch (metric) {
-    case L2: return launch<L2>(qf, dbf, qsq, dsq, pd, pi, od, oi, B, N, d, k, max_slices, s);
-    case DOT: return launch<DOT>(qf, dbf, qsq, dsq, pd, pi, od, oi, B, N, d, k, max_slices, s);
+    case L2:
+      return ld ? launch<L2, true>(qf, dbf, qsq, dsq, ld, li, pd, pi, od, oi, B, N, d, k,
+                                   max_slices, s)
+                : launch<L2, false>(qf, dbf, qsq, dsq, ld, li, pd, pi, od, oi, B, N, d, k,
+                                    max_slices, s);
+    case DOT:
+      return ld ? launch<DOT, true>(qf, dbf, qsq, dsq, ld, li, pd, pi, od, oi, B, N, d, k,
+                                    max_slices, s)
+                : launch<DOT, false>(qf, dbf, qsq, dsq, ld, li, pd, pi, od, oi, B, N, d, k,
+                                     max_slices, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

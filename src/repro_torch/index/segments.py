@@ -6,26 +6,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.index.params import SearchParams
+from repro_torch.kernels import ops
 
 
 def brute_force_topk(q: torch.Tensor, rows: torch.Tensor,
                      params: SearchParams, valid: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact scan through the fused rerank path: (B, k) dists + row ids.
+    """Exact scan through the fused rerank's arithmetic: (B, k) dists + row
+    ids.
 
-    The scan is ``rerank_fused`` over ids = arange(N) for every query
-    (mask = ``valid``, dedup off), padded to at least k columns, so its
-    distance arithmetic is that of every candidate-based backend: a row
-    scores the same whichever backend holds it.  On the card that is the
-    fused kernel with M = N.
+    The scan is ``ops.fused_scan``: the fused rerank over ids = arange(N)
+    for every query (mask = ``valid``, dedup off, +inf / -1 past the live
+    rows), so a row scores the same whichever backend holds it.  On the
+    card that is kernel B's query-tiled scan, which scores every pair bit
+    for bit as the gather kernel does; on the CPU, the gather's plain
+    version over arange(N).  ``params.chunk`` does not change the answer
+    and is not read.
     """
-    from repro_torch.core.pipeline import rerank_fused
-    b, n = q.shape[0], rows.shape[0]
-    m = max(n, params.k)
-    ids = torch.full((b, m), -1, dtype=torch.int32, device=rows.device)
-    ids[:, :n] = torch.arange(n, dtype=torch.int32, device=rows.device)
-    mask = ids >= 0
-    if valid is not None:
-        mask[:, :n] &= valid[None, :]
-    return rerank_fused(q, ids, mask, rows, params.k, metric=params.metric,
-                        mode=params.mode, dedup=False, chunk=params.chunk)
+    return ops.fused_scan(q, rows, params.k, params.metric, valid,
+                          params.mode)

@@ -31,22 +31,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "forest_traverse": ("forest_traverse",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "fused_query": ("fused_gather_topk",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "fused_query": ("fused_gather_topk", [_P] * 8 + [_I] * 6 + [_P]),
+    "fused_scan": ("fused_scan", [_P] * 11 + [_I] * 6 + [_P]),
     "fused_query_int8": ("fused_gather_topk_int8",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P]),
-    "scan_topk": ("scan_topk",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                   _P]),
+                         [_P] * 9 + [_I] * 6 + [_P]),
+    "scan_topk": ("scan_topk", [_P] * 10 + [_I] * 6 + [_P]),
     "forest_traverse_smem": ("forest_traverse_smem",
                              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "distance_topk": ("distance_topk",
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "distance_topk": ("distance_topk", [_P] * 10 + [_I] * 5 + [_P]),
     "embedding_bag": ("embedding_bag",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "chi2_topk": ("chi2_topk",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "chi2_topk": ("chi2_topk", [_P] * 10 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -16,8 +16,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LAUNCHES
-from repro_torch.kernels.matmul_topk import MAX_SLICES, scan_outputs
+from repro_torch.kernels.common import LAUNCHES, pointers, topk_rounds
+from repro_torch.kernels.matmul_topk import (K_MAX, MAX_SLICES, check_scan,
+                                             scan_outputs)
 from repro_torch.kernels.ref import chi2_topk_ref
 
 # the kernel's query tile and dims a stage: the transposed query tiles and
@@ -33,17 +34,23 @@ def chi2_topk(q: torch.Tensor, db: torch.Tensor, k: int
     to the smaller id, +inf / -1 where k > N or the score is +inf."""
     if not q.is_cuda:
         return chi2_topk_ref(q, db, k)
-    part_d, part_i, out_d, out_i = scan_outputs(q, db, k)
+    check_scan(q, db, k)
     (b, d), n = q.shape, db.shape[0]
     d_pad = max(CHUNK_D, -(-d // CHUNK_D) * CHUNK_D)
     qt = torch.empty((-(-b // TILE_Q), d_pad, TILE_Q), dtype=torch.float32,
                      device=q.device)
     tt = torch.empty_like(qt)
     fn = build.library("chi2_topk").chi2_topk
-    err = fn(q.data_ptr(), db.data_ptr(), qt.data_ptr(), tt.data_ptr(),
-             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-             out_i.data_ptr(), b, n, d, k, MAX_SLICES,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check_launch(err, "chi2_topk")
-    LAUNCHES["chi2_topk"] += 1
-    return out_d, out_i
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def launch(kk, lower):
+        part_d, part_i, out_d, out_i = scan_outputs(q, kk)
+        err = fn(q.data_ptr(), db.data_ptr(), qt.data_ptr(), tt.data_ptr(),
+                 *pointers(lower, 2), part_d.data_ptr(), part_i.data_ptr(),
+                 out_d.data_ptr(), out_i.data_ptr(), b, n, d, kk, MAX_SLICES,
+                 stream)
+        build.check_launch(err, "chi2_topk")
+        LAUNCHES["chi2_topk"] += 1
+        return out_d, out_i, (out_d, out_i)
+
+    return topk_rounds(k, K_MAX, launch)

@@ -14,10 +14,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LAUNCHES, check_tensor
+from repro_torch.kernels.common import (LAUNCHES, check_tensor, pointers,
+                                        topk_rounds)
 from repro_torch.kernels.ref import distance_topk_ref
 
 METRIC_CODES = {"l2": 0, "chi2": 2}
+# the kernel's top-k list; a larger k runs in rounds (``common.topk_rounds``)
 K_MAX = 128
 # a block's shared memory: the query row beside ~9 KB of static tiles
 _SMEM_LIMIT = 232_448
@@ -46,16 +48,25 @@ def distance_topk(q: torch.Tensor, cand: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, cand "
                          f"{tuple(cand.shape)}, ids {tuple(ids.shape)}, "
                          f"mask {tuple(mask.shape)}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k must be in [1, {K_MAX}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     if 4 * d + _SMEM_STATIC > _SMEM_LIMIT:
         raise ValueError(f"d = {d} does not fit a block's shared memory")
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = build.library("distance_topk").distance_topk
-    err = fn(q.data_ptr(), cand.data_ptr(), ids.data_ptr(), mask.data_ptr(),
-             out_d.data_ptr(), out_i.data_ptr(), b, m, d, k,
-             METRIC_CODES[metric], torch.cuda.current_stream(dev).cuda_stream)
-    build.check_launch(err, "distance_topk")
-    LAUNCHES["distance_topk"] += 1
-    return out_d, out_i
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(kk, lower):
+        out_d = torch.empty((b, kk), dtype=torch.float32, device=dev)
+        out_i = torch.empty((b, kk), dtype=torch.int32, device=dev)
+        last_s = torch.empty((b,), dtype=torch.int32, device=dev)
+        # a launch that is all of k needs no next key: the kernel then
+        # compiles without its rounds' tests
+        err = fn(q.data_ptr(), cand.data_ptr(), ids.data_ptr(),
+                 mask.data_ptr(), *pointers(lower, 3), out_d.data_ptr(),
+                 out_i.data_ptr(), None if kk == k else last_s.data_ptr(), b,
+                 m, d, kk, METRIC_CODES[metric], stream)
+        build.check_launch(err, "distance_topk")
+        LAUNCHES["distance_topk"] += 1
+        return out_d, out_i, (out_d, out_i, last_s)
+
+    return topk_rounds(k, K_MAX, launch)

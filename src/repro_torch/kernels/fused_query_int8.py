@@ -6,15 +6,16 @@ tensors on a CUDA device and runs its plain version
 (``ref.fused_gather_topk_int8_ref``) for tensors on the CPU.  The kernel
 reads each valid candidate's int8 row and its f32 scale (d + 4 bytes, not
 the 4d of the fp32 row), dequantizes in registers and never writes a
-dequantized block.  It takes k' up to ``K_MAX`` = 512 (k = 128 at
-expand 4), four times kernel B's limit.
+dequantized block.  Its top-k' list holds ``K_MAX`` = 512 (k = 128 at
+expand 4); a larger k' runs in rounds (``common.topk_rounds``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LAUNCHES, check_tensor
+from repro_torch.kernels.common import (LAUNCHES, check_tensor, pointers,
+                                        topk_rounds)
 from repro_torch.kernels.fused_query import METRIC_CODES
 from repro_torch.kernels.ref import fused_gather_topk_int8_ref
 
@@ -48,18 +49,25 @@ def fused_gather_topk_int8(q: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, ids "
                          f"{tuple(ids.shape)}, q8 {tuple(q8.shape)}, scale "
                          f"{tuple(scale.shape)}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k must be in [1, {K_MAX}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     if n == 0:
         raise ValueError("q8 holds no rows")
     if 4 * d + _SMEM_STATIC > _SMEM_LIMIT:
         raise ValueError(f"d = {d} does not fit a block's shared memory")
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = build.library("fused_query_int8").fused_gather_topk_int8
-    err = fn(q.data_ptr(), ids.data_ptr(), q8.data_ptr(), scale.data_ptr(),
-             out_d.data_ptr(), out_i.data_ptr(), b, m, n, d, k,
-             METRIC_CODES[metric], torch.cuda.current_stream(dev).cuda_stream)
-    build.check_launch(err, "fused_gather_topk_int8")
-    LAUNCHES["fused_gather_topk_int8"] += 1
-    return out_d, out_i
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(kk, lower):
+        out_d = torch.empty((b, kk), dtype=torch.float32, device=dev)
+        out_i = torch.empty((b, kk), dtype=torch.int32, device=dev)
+        last_s = torch.empty((b,), dtype=torch.int32, device=dev)
+        err = fn(q.data_ptr(), ids.data_ptr(), q8.data_ptr(),
+                 scale.data_ptr(), *pointers(lower, 2), out_d.data_ptr(),
+                 out_i.data_ptr(), last_s.data_ptr(), b, m, n, d, kk,
+                 METRIC_CODES[metric], stream)
+        build.check_launch(err, "fused_gather_topk_int8")
+        LAUNCHES["fused_gather_topk_int8"] += 1
+        return out_d, out_i, (out_d, last_s)
+
+    return topk_rounds(k, K_MAX, launch)

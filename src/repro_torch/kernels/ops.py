@@ -84,6 +84,18 @@ def fused_rerank(q: torch.Tensor, ids: torch.Tensor, db: torch.Tensor, k: int,
     return _ref.fused_gather_topk_ref(q, ids, db, k, metric)
 
 
+def fused_scan(q: torch.Tensor, db: torch.Tensor, k: int, metric: str = "l2",
+               valid: torch.Tensor | None = None, mode: str = "auto"
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused rerank over ids = arange(N) for every query, the exact
+    scan of the ``bruteforce`` backend: each pair scores bit for bit what
+    ``fused_rerank`` gives it; ``valid`` an optional (N,) bool row mask;
+    ties to the smaller id, +inf / -1 past the live rows."""
+    if use_kernel(mode, q):
+        return _fused.fused_scan(q, db, k, metric, valid)
+    return _ref.fused_scan_ref(q, db, k, metric, valid)
+
+
 def fused_rerank_int8(q: torch.Tensor, ids: torch.Tensor, q8: torch.Tensor,
                       scale: torch.Tensor, k: int, metric: str = "l2",
                       mode: str = "auto"

@@ -1,7 +1,13 @@
 """Plain PyTorch versions of the CUDA kernels (port of ``repro/kernels/ref.py``).
 
 Each mirrors its kernel's contract exactly: shapes, dtypes, -1 slots and
-tie-breaking.  They are what a wrapper runs for tensors on the CPU, what
+tie-breaking, and the optional exclusive lower key ``lower`` a kernel takes
+in its rounds (``common.topk_rounds``): a (score, key) at or before its
+row's key takes no place.  The key is the slot for B and C, (id, slot)
+for G and the id for D, E and the scan.  With ``keys=True`` the versions
+of B, C and G also return the key columns of the next round's lower key
+(``common.last_key``), which their outputs alone do not give.  They are
+what a wrapper runs for tensors on the CPU, what
 ``mode="ref"`` forces, and what ``chip_smoke.py`` holds the kernels
 against on the card.  Each call adds one to ``REF_CALLS[<name>]``.
 """
@@ -13,13 +19,26 @@ import torch
 
 from repro_torch.core.distances import METRICS
 from repro_torch.kernels.common import (EPS, GATHER_BUDGET_BYTES, POS_INF,
-                                        REF_CALLS, blockwise_topk,
-                                        topk_smallest)
+                                        REF_CALLS, Lower, after,
+                                        blockwise_topk, topk_smallest)
+
+
+def _slot_topk(scores: torch.Tensor, ids: torch.Tensor, k: int,
+               lower: Lower | None, keys: bool):
+    """The top-k by (score, slot) of B and C's plain versions."""
+    slots = torch.arange(ids.shape[1], dtype=torch.int32,
+                         device=ids.device).expand_as(ids)
+    scores = torch.where((ids >= 0) & after(lower, scores, slots), scores,
+                         POS_INF)
+    d, pos = topk_smallest(scores, k)
+    i = torch.where(torch.isinf(d), -1, torch.gather(ids, 1,
+                                                     pos.clamp_min(0)))
+    return (d, i, (d, pos.int())) if keys else (d, i)
 
 
 def fused_gather_topk_ref(q: torch.Tensor, ids: torch.Tensor,
-                          db: torch.Tensor, k: int, metric: str = "l2"
-                          ) -> tuple[torch.Tensor, torch.Tensor]:
+                          db: torch.Tensor, k: int, metric: str = "l2",
+                          lower: Lower | None = None, keys: bool = False):
     """Plain version of ``kernels.fused_query.fused_gather_topk``.
 
     q (B, d), ids (B, M) int32 with -1 marking invalid slots, db (N, d) ->
@@ -28,19 +47,16 @@ def fused_gather_topk_ref(q: torch.Tensor, ids: torch.Tensor,
     it gathers the (B, M, d) candidate block, so callers bound M.
     """
     REF_CALLS["fused_gather_topk"] += 1
-    valid = ids >= 0
     cand = db[ids.clamp(0, db.shape[0] - 1).long()].float()     # (B, M, d)
     scores = METRICS[metric](q.float()[:, None, :], cand)
-    scores = torch.where(valid, scores, POS_INF)
-    d, pos = topk_smallest(scores, k)
-    i = torch.gather(ids, 1, pos.clamp_min(0))
-    return d, torch.where(torch.isinf(d), -1, i)
+    return _slot_topk(scores, ids, k, lower, keys)
 
 
 def fused_gather_topk_int8_ref(q: torch.Tensor, ids: torch.Tensor,
                                q8: torch.Tensor, scale: torch.Tensor, k: int,
-                               metric: str = "l2"
-                               ) -> tuple[torch.Tensor, torch.Tensor]:
+                               metric: str = "l2",
+                               lower: Lower | None = None,
+                               keys: bool = False):
     """Plain version of ``kernels.fused_query_int8.fused_gather_topk_int8``.
 
     The dequant-gather of the reference's oracle: each valid slot's int8
@@ -49,19 +65,15 @@ def fused_gather_topk_int8_ref(q: torch.Tensor, ids: torch.Tensor,
     valid slots.  It gathers the (B, M, d) block, so callers bound M.
     """
     REF_CALLS["fused_gather_topk_int8"] += 1
-    valid = ids >= 0
-    safe = torch.where(valid, ids, 0).long()
+    safe = torch.where(ids >= 0, ids, 0).long()
     deq = q8[safe].float() * scale[safe][:, :, None]             # (B, M, d)
     scores = METRICS[metric](q.float()[:, None, :], deq)
-    scores = torch.where(valid, scores, POS_INF)
-    d, pos = topk_smallest(scores, k)
-    i = torch.gather(ids, 1, pos.clamp_min(0))
-    return d, torch.where(torch.isinf(d), -1, i)
+    return _slot_topk(scores, ids, k, lower, keys)
 
 
 def distance_topk_ref(q: torch.Tensor, cand: torch.Tensor, ids: torch.Tensor,
-                      mask: torch.Tensor, k: int, metric: str = "l2"
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      mask: torch.Tensor, k: int, metric: str = "l2",
+                      lower: Lower | None = None, keys: bool = False):
     """Plain version of ``kernels.distance_topk.distance_topk``.
 
     q (B, d), cand (B, M, d) pre-gathered rows, ids (B, M) int32, mask
@@ -76,11 +88,16 @@ def distance_topk_ref(q: torch.Tensor, cand: torch.Tensor, ids: torch.Tensor,
     if metric not in ("l2", "chi2"):
         raise ValueError(f"distance_topk scores l2 or chi2, not {metric!r}")
     scores = METRICS[metric](q.float()[:, None, :], cand.float())
-    scores = torch.where(mask, scores, POS_INF)
+    slots = torch.arange(ids.shape[1], dtype=torch.int32,
+                         device=ids.device).expand_as(ids)
+    scores = torch.where(mask & after(lower, scores, ids, slots), scores,
+                         POS_INF)
     by_id = torch.sort(ids, dim=-1, stable=True).indices
     d, pos = topk_smallest(torch.gather(scores, 1, by_id), k)
-    i = torch.gather(ids, 1, torch.gather(by_id, 1, pos.clamp_min(0)))
-    return d, torch.where(torch.isinf(d), -1, i)
+    slot = torch.gather(by_id, 1, pos.clamp_min(0))
+    i = torch.gather(ids, 1, slot)
+    out = d, torch.where(torch.isinf(d), -1, i)
+    return out + ((d, i, slot.int()),) if keys else out
 
 
 def embedding_bag_ref(ids: torch.Tensor, weights: torch.Tensor,
@@ -96,7 +113,8 @@ def embedding_bag_ref(ids: torch.Tensor, weights: torch.Tensor,
 
 
 def matmul_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int,
-                    metric: str = "l2") -> tuple[torch.Tensor, torch.Tensor]:
+                    metric: str = "l2", lower: Lower | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``kernels.matmul_topk.matmul_topk``: exact scan, l2
     as |q|^2 - 2 q.c + |c|^2 (not clamped) or dot as -q.c; ascending, ties
     to the smaller id, +inf / -1 where k > N.  The product is
@@ -117,10 +135,11 @@ def matmul_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int,
         return q_sq - 2 * cross + torch.sum(blk.float() ** 2, dim=1)[None, :]
 
     block = max(GATHER_BUDGET_BYTES // (4 * max(q.shape[0], 1)), k)
-    return blockwise_topk(qf, db, k, score, block)
+    return blockwise_topk(qf, db, k, score, block, lower)
 
 
-def chi2_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int
+def chi2_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int,
+                  lower: Lower | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``kernels.chi2_topk.chi2_topk``: exact scan of
     sum (q - c)^2 / (q + c + 1e-12); ascending, ties to the smaller id,
@@ -134,10 +153,11 @@ def chi2_topk_ref(q: torch.Tensor, db: torch.Tensor, k: int
 
     b, d = q.shape
     block = max(GATHER_BUDGET_BYTES // (4 * max(b, 1) * max(d, 1)), 1)
-    return blockwise_topk(q.float(), db, k, score, block)
+    return blockwise_topk(q.float(), db, k, score, block, lower)
 
 
-def chi2_topk_dordered(q: torch.Tensor, db: torch.Tensor, k: int
+def chi2_topk_dordered(q: torch.Tensor, db: torch.Tensor, k: int,
+                       lower: Lower | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """``chi2_topk_ref`` with kernel E's order of sums: each pair's terms
     t = q - c; t * t / ((q + c) + 1e-12) are added one by one in d order
@@ -156,7 +176,37 @@ def chi2_topk_dordered(q: torch.Tensor, db: torch.Tensor, k: int
 
     b = q.shape[0]
     block = max(GATHER_BUDGET_BYTES // (4 * max(b, 1)), 1)
-    return blockwise_topk(q.float(), db, k, score, block)
+    return blockwise_topk(q.float(), db, k, score, block, lower)
+
+
+def fused_scan_ref(q: torch.Tensor, db: torch.Tensor, k: int,
+                   metric: str = "l2", valid: torch.Tensor | None = None,
+                   lower: Lower | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``kernels.fused_query.fused_scan``: kernel B's plain
+    version over ids = arange(N) for every query (-1 where ``valid`` is
+    False), one block of rows at a time under ``GATHER_BUDGET_BYTES``,
+    merged with ties to the earlier block; ascending, ties to the smaller
+    id, +inf / -1 past the live rows."""
+    REF_CALLS["fused_scan"] += 1
+    b, n = q.shape[0], db.shape[0]
+    block = max(GATHER_BUDGET_BYTES // (4 * max(b, 1) * max(q.shape[1], 1)),
+                k)
+    best_d = q.new_full((b, 0), POS_INF)
+    best_i = torch.empty((b, 0), dtype=torch.int32, device=q.device)
+    for lo in range(0, max(n, 1), block):
+        ids = torch.arange(lo, min(n, lo + block), dtype=torch.int32,
+                           device=q.device)
+        if valid is not None:
+            ids = torch.where(valid[lo:lo + block], ids, -1)
+        # a block's slots are its ids less lo: the same order
+        low = None if lower is None else (lower[0], lower[1] - lo)
+        d, i = fused_gather_topk_ref(q, ids.expand(b, -1), db, k, metric,
+                                     low)
+        best_d, pos = topk_smallest(torch.cat([best_d, d], dim=1), k)
+        best_i = torch.gather(torch.cat([best_i, i], dim=1), 1,
+                              pos.clamp_min(0))
+    return best_d, torch.where(torch.isinf(best_d), -1, best_i)
 
 
 def descend(project: Callable[[torch.Tensor], torch.Tensor],

@@ -26,8 +26,9 @@ from repro_torch.data.synthetic import iss_like
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.chi2_topk import chi2_topk
-from repro_torch.kernels.common import LAUNCHES, REF_CALLS
-from repro_torch.kernels.matmul_topk import matmul_topk
+from repro_torch.index.segments import brute_force_topk
+from repro_torch.kernels.common import LAUNCHES, REF_CALLS, topk_rounds
+from repro_torch.kernels.matmul_topk import K_MAX, matmul_topk
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -84,6 +85,78 @@ def test_chi2_topk_dordered_matches_reference(b, n, d, k):
                                   k)
     want = jref.chi2_topk_ref(jnp.asarray(q), jnp.asarray(db), k)
     _assert_topk(got, want)
+
+
+def _rounds(fn, k):
+    """``fn(k, lower)`` (a plain scan) through the round loop at the
+    kernels' list size K_MAX, each round after the last (score, id) of the
+    one before."""
+    def launch(kk, lower):
+        d, i = fn(kk, lower)
+        return d, i, (d, i)
+    return topk_rounds(k, K_MAX, launch)
+
+
+def _assert_prefix(got, small):
+    """A round-served top-k's first columns are bitwise the small k's."""
+    w = small[0].shape[1]
+    assert torch.equal(got[0][:, :w].contiguous().view(torch.int32),
+                       small[0].view(torch.int32))
+    assert torch.equal(got[1][:, :w], small[1])
+
+
+@pytest.mark.parametrize("k", [129, 300])
+@pytest.mark.parametrize("scan", ["l2", "dot", "chi2", "chi2_dordered"])
+def test_scan_refs_rounds_match_reference(scan, k):
+    """k above the kernels' list (K_MAX = 128): kernels D's and E's plain
+    versions (and E's d-ordered one) through the round loop equal the
+    reference's one-pass scan at k, past N too (+inf / -1), and their
+    first 10 columns are bitwise their own k = 10 output."""
+    q, db = _inputs(4, 280, 12, seed=k, nonneg=True)
+    tq, tdb = torch.from_numpy(q), torch.from_numpy(db)
+    if scan in ("l2", "dot"):
+        def fn(kk, lower=None):
+            return tref.matmul_topk_ref(tq, tdb, kk, scan, lower)
+        want = jref.matmul_topk_ref(jnp.asarray(q), jnp.asarray(db), k,
+                                    metric=scan)
+    else:
+        plain = (tref.chi2_topk_ref if scan == "chi2"
+                 else tref.chi2_topk_dordered)
+
+        def fn(kk, lower=None):
+            return plain(tq, tdb, kk, lower)
+        want = jref.chi2_topk_ref(jnp.asarray(q), jnp.asarray(db), k)
+    got = _rounds(fn, k)
+    w = min(k, 280)                       # the reference keeps min(k, N)
+    _assert_topk((got[0][:, :w], got[1][:, :w]), want,
+                 *((q, db) if scan == "l2" else ()))
+    assert np.isinf(got[0].numpy()[:, w:]).all()
+    assert (got[1].numpy()[:, w:] == -1).all()
+    _assert_prefix(got, fn(10))
+
+
+@pytest.mark.parametrize("k", [129, 300])
+@pytest.mark.parametrize("metric", ["l2", "dot", "chi2", "cosine"])
+def test_fused_scan_ref_rounds_match_reference(metric, k):
+    """The bruteforce scan's plain version (kernel B's over arange(N), dead
+    rows -1) through the round loop at k equals the reference's gather over
+    the same ids in one pass, with +inf / -1 past the 80% live rows, and
+    its first 10 columns are bitwise its own k = 10 output."""
+    q, db = _inputs(5, 330, 16, seed=k + 1, nonneg=metric == "chi2")
+    valid = np.random.default_rng(k).uniform(size=330) < 0.8
+    tq, tdb, tv = map(torch.from_numpy, (q, db, valid))
+
+    def fn(kk, lower=None):
+        return tref.fused_scan_ref(tq, tdb, kk, metric, tv, lower)
+
+    ids = np.where(valid, np.arange(330, dtype=np.int32), -1)
+    want = jref.fused_gather_topk_ref(jnp.asarray(q),
+                                      jnp.asarray(np.tile(ids, (5, 1))),
+                                      jnp.asarray(db), k, metric)
+    got = _rounds(fn, k)
+    _assert_topk(got, want)
+    assert int((got[1] >= 0).sum(1).max()) == min(k, int(valid.sum()))
+    _assert_prefix(got, fn(10))
 
 
 def _special_floats(n, seed):
@@ -215,7 +288,8 @@ def brute_indexes():
 
 @pytest.mark.parametrize("kw", [dict(k=6), dict(k=6, metric="ip"),
                                 dict(k=4, metric="dot", chunk=97),
-                                dict(k=5, n_probes=3, n_trees=2, expand=2)])
+                                dict(k=5, n_probes=3, n_trees=2, expand=2),
+                                dict(k=129), dict(k=129, chunk=50)])
 def test_bruteforce_matches_reference(brute_indexes, kw):
     q, db, jidx, tidx = brute_indexes
     want = jidx.search(q, jindex.SearchParams(**dict(kw, mode="ref")))
@@ -223,6 +297,30 @@ def test_bruteforce_matches_reference(brute_indexes, kw):
     _assert_topk(got, want)
     _assert_topk(got, exact_knn(torch.from_numpy(q), torch.from_numpy(db),
                                 kw["k"], kw.get("metric", "l2")))
+
+
+@pytest.mark.parametrize("n,k,chunk", [(700, 129, 0), (50, 129, 0),
+                                        (700, 129, 60), (700, 6, 97)])
+def test_brute_force_topk_with_valid_matches_reference(brute_indexes, n, k,
+                                                       chunk):
+    """``brute_force_topk`` with a row mask (every 7th row dead) against the
+    reference's at k = 129, with N < k (+inf / -1 past the live rows) and
+    with a chunk, which changes nothing in the answer."""
+    from repro.index.segments import brute_force_topk as j_brute
+    q, db, _, _ = brute_indexes
+    db = np.ascontiguousarray(db[:n])
+    valid = np.arange(n) % 7 != 0
+    want = j_brute(jnp.asarray(q), jnp.asarray(db),
+                   jindex.SearchParams(k=k, chunk=chunk, mode="ref"),
+                   valid=jnp.asarray(valid))
+    got = brute_force_topk(torch.from_numpy(q), torch.from_numpy(db),
+                           tindex.SearchParams(k=k, chunk=chunk),
+                           valid=torch.from_numpy(valid))
+    _assert_topk(got, want)
+    assert not bool((got[1] % 7 == 0).any())
+    _assert_prefix(got, brute_force_topk(
+        torch.from_numpy(q), torch.from_numpy(db), tindex.SearchParams(k=6),
+        valid=torch.from_numpy(valid)))
 
 
 def test_bruteforce_pads_past_n_and_takes_valid():

@@ -17,9 +17,10 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.common import LAUNCHES, REF_CALLS, topk_smallest
+from repro_torch.kernels.common import (LAUNCHES, REF_CALLS, topk_rounds,
+                                        topk_smallest)
 from repro_torch.kernels.forest_traverse_hbm import forest_traverse_hbm
-from repro_torch.kernels.fused_query import fused_gather_topk
+from repro_torch.kernels.fused_query import K_MAX, fused_gather_topk
 
 RTOL, ATOL = 1e-5, 1e-6
 METRICS = ("l2", "dot", "chi2", "cosine")
@@ -59,6 +60,45 @@ def test_fused_gather_topk_ref_matches_reference(metric, b, m, k):
     _assert_topk(got, want)
     assert np.isinf(got[0].numpy()[0, 2:]).all()
     assert (got[1].numpy()[0, 2:] == -1).all()
+
+
+def _assert_prefix(got, small):
+    """A round-served top-k's first columns are bitwise the small k's."""
+    w = small[0].shape[1]
+    assert torch.equal(got[0][:, :w].contiguous().view(torch.int32),
+                       small[0].view(torch.int32))
+    assert torch.equal(got[1][:, :w], small[1])
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [129, 300])
+def test_fused_gather_topk_ref_rounds_match_reference(metric, k):
+    """k above the kernel's list (K_MAX = 128): the plain version driven
+    through the round loop, each round after the last (score, slot) of the
+    one before, equals the reference at k in one pass; 30% holes and
+    repeated ids (ties to the earliest slot across rounds), fewer valid
+    slots than k (+inf / -1 tail), and its first 10 columns are bitwise its
+    own k = 10 output."""
+    q, ids, db = _fused_inputs(5, 400, 600, 24, 0.3, seed=k,
+                               nonneg=metric == "chi2")
+    tq, tids, tdb = map(torch.from_numpy, (q, ids, db))
+    got = topk_rounds(k, K_MAX, lambda kk, lower: tref.fused_gather_topk_ref(
+        tq, tids, tdb, kk, metric, lower, keys=True))
+    want = jref.fused_gather_topk_ref(jnp.asarray(q), jnp.asarray(ids),
+                                      jnp.asarray(db), k, metric)
+    _assert_topk(got, want)
+    assert np.isinf(got[0].numpy()[0, 2:]).all()
+    assert (got[1].numpy()[0, 2:] == -1).all()
+    _assert_prefix(got, tref.fused_gather_topk_ref(tq, tids, tdb, 10, metric))
+
+
+def test_topk_rounds_of_small_lists_equal_one_pass():
+    """Lists of 7 in many rounds give the one-pass top-k bit for bit."""
+    q, ids, db = _fused_inputs(4, 90, 200, 8, 0.2, seed=12)
+    tq, tids, tdb = map(torch.from_numpy, (q, ids, db))
+    got = topk_rounds(60, 7, lambda kk, lower: tref.fused_gather_topk_ref(
+        tq, tids, tdb, kk, "l2", lower, keys=True))
+    _assert_prefix(got, tref.fused_gather_topk_ref(tq, tids, tdb, 60))
 
 
 def test_fused_gather_topk_ref_at_full_width():

@@ -20,8 +20,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import forest_traverse as smem
-from repro_torch.kernels.common import LAUNCHES, REF_CALLS
-from repro_torch.kernels.distance_topk import distance_topk
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.common import LAUNCHES, REF_CALLS, topk_rounds
+from repro_torch.kernels.distance_topk import K_MAX, distance_topk
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.forest_traverse import forest_traverse
 from repro_torch.kernels.forest_traverse_hbm import forest_traverse_hbm_tree
@@ -156,6 +157,37 @@ def test_rerank_candidates_ties_go_to_the_smaller_id(k):
     np.testing.assert_array_equal(gi.numpy()[:, :6], np.asarray(wi))
     np.testing.assert_array_equal(gd.numpy()[:, :6], np.asarray(wd))
     assert gi.tolist()[0] == [1, 2, 3, 5, 7, 9, -1, -1][:k]
+
+
+@pytest.mark.parametrize("metric", ["l2", "chi2"])
+@pytest.mark.parametrize("k", [129, 300])
+def test_distance_topk_ref_rounds_match_reference(metric, k):
+    """k above kernel G's list (K_MAX = 128): the plain version through the
+    round loop, each round after the last (score, id, slot) of the one
+    before, equals the reference in one pass; repeated ids with equal rows
+    (a tie on (score, id) that the slot breaks, across a round's edge too),
+    an all-masked row, fewer valid slots than k; its first 10 columns are
+    bitwise its own k = 10 output."""
+    q, cand, ids, mask = _cand_inputs(4, 400, 10, k, metric == "chi2")
+    # row 0: slot 0 scores 0, then each id twice with the same row, so the
+    # two copies of the 64th pair straddle the first round's edge
+    ids[0, 2::2] = ids[0, 1:-1:2]
+    cand[0, 2::2] = cand[0, 1:-1:2]
+    cand[0, 0] = q[0]
+    mask[0] = True
+    mask[0, -1] = False                    # the one unpaired slot
+    tq, tc, ti, tm = _t(q, cand, ids, mask)
+    got = topk_rounds(k, K_MAX, lambda kk, lower: tref.distance_topk_ref(
+        tq, tc, ti, tm, kk, metric, lower, keys=True))
+    wd, wi = (np.asarray(a) for a in jref.distance_topk_ref(
+        *map(jnp.asarray, (q, cand, ids, mask)), k, metric))
+    np.testing.assert_allclose(got[0].numpy(), wd, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got[1].numpy(), wi)
+    assert (got[1].numpy()[1] == -1).all()
+    small = tref.distance_topk_ref(tq, tc, ti, tm, 10, metric)
+    assert torch.equal(got[0][:, :10].contiguous().view(torch.int32),
+                       small[0].view(torch.int32))
+    assert torch.equal(got[1][:, :10], small[1])
 
 
 def test_rerank_candidates_pallas_interpret_case():

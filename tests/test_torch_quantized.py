@@ -26,8 +26,9 @@ from repro_torch.core import pipeline as tpipe
 from repro_torch.core import quantized as tquant
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.common import LAUNCHES, REF_CALLS
-from repro_torch.kernels.fused_query_int8 import fused_gather_topk_int8
+from repro_torch.kernels.common import LAUNCHES, REF_CALLS, topk_rounds
+from repro_torch.kernels.fused_query_int8 import (K_MAX,
+                                                  fused_gather_topk_int8)
 
 RTOL, ATOL = 1e-5, 1e-6
 METRICS = ("l2", "dot", "chi2", "cosine")
@@ -89,6 +90,31 @@ def test_int8_ref_matches_reference(metric, b, m, k):
     _assert_topk(got, want)
     assert np.isinf(got[0].numpy()[0, 2:]).all()
     assert (got[1].numpy()[0, 2:] == -1).all()
+
+
+@pytest.mark.parametrize("metric", ["l2", "chi2"])
+@pytest.mark.parametrize("k", [129, 300])
+def test_int8_ref_rounds_match_reference(metric, k):
+    """k' = 4 k above the kernel's list (K_MAX = 512): the plain version
+    through the round loop equals the reference at k' in one pass, and its
+    first 10 columns are bitwise its own k' = 10 output."""
+    kp = 4 * k
+    q, ids, x = _int8_inputs(3, kp + 100, 2000, 16, 0.1, seed=k,
+                             nonneg=metric == "chi2")
+    jq, tq = _both_qdb(x)
+    tqq, tids = torch.from_numpy(q), torch.from_numpy(ids)
+    got = topk_rounds(kp, K_MAX, lambda kk, lower:
+                      tref.fused_gather_topk_int8_ref(
+                          tqq, tids, tq.q, tq.scale, kk, metric, lower,
+                          keys=True))
+    want = jref.fused_gather_topk_int8_ref(jnp.asarray(q), jnp.asarray(ids),
+                                           jq.q, jq.scale, kp, metric)
+    _assert_topk(got, want)
+    small = tref.fused_gather_topk_int8_ref(tqq, tids, tq.q, tq.scale, 10,
+                                            metric)
+    assert torch.equal(got[0][:, :10].contiguous().view(torch.int32),
+                       small[0].view(torch.int32))
+    assert torch.equal(got[1][:, :10], small[1])
 
 
 def test_int8_kernel_pallas_interpret_case():
