@@ -54,16 +54,19 @@ Phases, each printing one JSON line:
   kernels  each kernel against its plain version at the paths' shapes and
            at edge shapes: the descents bitwise (kernel F also against
            kernel A), the others by the rule above (kernel G also against
-           kernel B on the same ids; kernel H within 1e-5 sum_h |w row| +
-           1e-6 of its plain version, at every launch shape it takes;
-           kernel E also bitwise, ids equal, against the d-ordered plain
-           sum on sparse and dense slabs of ISS-595 with edge rows and an
-           edge query)
+           kernel B on the same ids: distances bit for bit, ids equal at
+           every untied rank; kernel H within 1e-5 sum_h |w row| + 1e-6 of
+           its plain version, at every launch shape it takes; kernel E also
+           bitwise, ids equal, against the d-ordered plain sum on sparse
+           and dense slabs of ISS-595 with edge rows and an edge query, and
+           kernels B and G under chi2 against their lane-order plain
+           versions on the same slabs and on rows wider than a staged
+           chunk, at k = 10 and 129)
   scan     kernel B's scan against kernel B's gather over ids = arange(N),
            bit for bit in scores and ids: all 1024 MNIST-784 queries (l2,
            every row live and every 7th row dead), 128-query slabs for dot,
-           cosine (dead rows) and chi2 (ISS-595, live and dead rows), and a
-           50-row db at k = 129 (+inf / -1 past N)
+           cosine (dead rows) and chi2 (ISS-595, live and dead rows, and its
+           dense copy), and a 50-row db at k = 129 (+inf / -1 past N)
   anyk     k = 129 and 256 (past every kernel's list of 128, or 512 for
            kernel C): ``Index.search`` on ``rpf``, ``rpf+int8`` (expand 4 at
            4 probes: k' = 516 and 1024) and ``bruteforce``, ``ops.topk`` l2,
@@ -420,6 +423,9 @@ def main():
     iss_data_s = time.perf_counter() - t0
     iss_db = torch.from_numpy(iss_np).to(dev)
     iss_q = torch.from_numpy(iss_q_np).to(dev)
+    # ISS-595 with no element 0 (the rows raised by 2e-3, as kernel E's
+    # dense slab): what chi2's zero terms save, the dense rows cannot
+    iss_dense = iss_db + 2e-3
 
     def drive_brute():
         out = {m: ops.topk(queries, db, K, m) for m in ("l2", "dot")}
@@ -495,6 +501,11 @@ def main():
           "max_abs_err": worst_iss})
 
     # ---- kernels against their plain versions ------------------------------
+    def bitwise(got, want):
+        return (torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32))
+                and torch.equal(got[1], want[1]))
+
     feat = forest.proj_idx[..., 0]
     thresh, child = forest.thresh, forest.child_base
     trav_cases = 0
@@ -613,6 +624,60 @@ def main():
               f"d-ordered sum's ({slab_db.shape[0]} rows, k = {k})")
         scan_cases += 1
     check(bool(torch.isinf(got[0][0]).any()), "the edge row's +inf is lost")
+    # kernels B and G bitwise against their chi2 order of sums
+    # (ref.*_lane_order) on E's sparse and dense ISS-595 row sets: the 64
+    # slab queries x 1920 slots of ids into the set (10% of them -1, the
+    # first three the edge rows), k = 10 and 129 (two rounds)
+    lane_cases = []
+    for tag, slab_db in (("sparse", slabs[0][0]), ("dense", slabs[2][0])):
+        r = slab_db.shape[0]
+        lids = torch.randint(0, r, (64, 1920), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lids[torch.rand(lids.shape, generator=gen, device=dev) < 0.1] = -1
+        lids[:, :3] = torch.arange(r - 3, r, dtype=torch.int32, device=dev)
+        lmask = lids >= 0
+        lc = slab_db[lids.clamp_min(0).long()]
+        for k in (K, 129):
+            check(bitwise(fused_gather_topk(slab_q, lids, slab_db, k, "chi2"),
+                          ref.fused_gather_topk_lane_order(slab_q, lids,
+                                                           slab_db, k)),
+                  f"kernel B is not bitwise its chi2 lane order ({tag}, "
+                  f"k = {k})")
+            check(bitwise(distance_topk(slab_q, lc, lids, lmask, k, "chi2"),
+                          ref.distance_topk_lane_order(slab_q, lc, lids,
+                                                       lmask, k)),
+                  f"kernel G is not bitwise its chi2 lane order ({tag}, "
+                  f"k = {k})")
+            lane_cases.append([tag, 64, 1920, k])
+        del lc
+    # rows past one staged chunk (pair_score.cuh CHUNK, 1024 elements): d =
+    # 2048 (float4 groups) and 2101 (one element a lane, rows off 16
+    # bytes); 80% zeros, 16 queries x 200 slots of 300 rows; G's l2 too
+    for dd in (2048, 2101):
+        wide = torch.rand((316, dd), generator=gen, device=dev)
+        wide[wide < 0.8] = 0.0
+        wq, wide = wide[300:].contiguous(), wide[:300].contiguous()
+        wids = torch.randint(0, 300, (16, 200), generator=gen, device=dev,
+                             dtype=torch.int32)
+        wids[:, ::9] = -1
+        wmask = wids >= 0
+        wc = wide[wids.clamp_min(0).long()]
+        for k in (K, 129):
+            check(bitwise(fused_gather_topk(wq, wids, wide, k, "chi2"),
+                          ref.fused_gather_topk_lane_order(wq, wids, wide,
+                                                           k)),
+                  f"kernel B is not bitwise its chi2 lane order (d = {dd}, "
+                  f"k = {k})")
+            check(bitwise(distance_topk(wq, wc, wids, wmask, k, "chi2"),
+                          ref.distance_topk_lane_order(wq, wc, wids, wmask,
+                                                       k)),
+                  f"kernel G is not bitwise its chi2 lane order (d = {dd}, "
+                  f"k = {k})")
+            lane_cases.append([f"d = {dd}", 16, 200, k])
+        g_wide = compare_topk(torch, distance_topk(wq, wc, wids, wmask, K),
+                              ref.distance_topk_ref(wq, wc, wids, wmask,
+                                                    K + 1), K)
+        fused_err = max(fused_err, g_wide)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "descent_cases": trav_cases,
           "descent_bitwise": True, "fused_cases": fused_cases,
@@ -620,7 +685,8 @@ def main():
           "int8_max_abs_err": int8_err, "scan_cases": scan_cases,
           "matmul_max_abs_err": d_err, "chi2_max_abs_err": e_err,
           "chi2_dordered_slabs": [[64, r.shape[0], k] for r, k in slabs],
-          "chi2_dordered_bitwise": True})
+          "chi2_dordered_bitwise": True, "chi2_lane_order_bitwise_b_g":
+          lane_cases})
 
     # ---- kernel B's scan against its gather, bit for bit --------------------
     def gather_all(q, rows, k, metric, valid=None):
@@ -632,11 +698,6 @@ def main():
             ids = torch.where(valid, ids, -1)
         return fused_gather_topk(q, ids.expand(q.shape[0], -1).contiguous(),
                                  rows, k, metric)
-
-    def bitwise(got, want):
-        return (torch.equal(got[0].view(torch.int32),
-                            want[0].view(torch.int32))
-                and torch.equal(got[1], want[1]))
 
     def every_7th_dead(rows):
         return torch.arange(rows.shape[0], device=dev) % 7 != 0
@@ -651,13 +712,15 @@ def main():
             ("cosine", queries[:SLAB], db, every_7th_dead(db), K),
             ("chi2", iss_slab, iss_db, None, K),
             ("chi2", iss_slab, iss_db, every_7th_dead(iss_db), K),
+            ("chi2", iss_slab, iss_dense, None, K),
             ("l2", queries[:7], db50, None, 129),
             ("dot", queries[:7], db50, every_7th_dead(db50), 129)):
         q = q.contiguous()
         got = fused_scan(q, rows, k, metric, valid)
         want = gather_all(q, rows, k, metric, valid)
         tag = (f"{metric}, {q.shape[0]} x {rows.shape[0]}, k = {k}, "
-               f"{'every 7th row dead' if valid is not None else 'all live'}")
+               f"{'every 7th row dead' if valid is not None else 'all live'}"
+               f"{', dense' if rows is iss_dense else ''}")
         check(bitwise(got, want), f"the scan differs from B's gather: {tag}")
         live = rows.shape[0] if valid is None else int(valid.sum())
         check(bool((got[1][:, live:] == -1).all())
@@ -831,7 +894,8 @@ def main():
     # ---- path: rerank (kernel G through ops.rerank_candidates) --------------
     def rerank_path():
         """The rpf path's own deduplicated candidates, gathered as db[ids]
-        (20 GB in all, freed on return): drive, compare, time."""
+        (25 GB in all with the dense ISS-595 copy, freed on return): drive,
+        compare, time."""
         gathered = []
         for cell, metric, q, rows, ids in (
                 ("rpf_mnist784 P=1", "l2", queries, db, cand[1]),
@@ -854,16 +918,28 @@ def main():
               "shapes": {g[0]: list(g[6].shape) for g in gathered},
               "gathered_gb": sum(g[6].numel() * 4 for g in gathered) / 1e9,
               "launches": launches, "ref_calls": ref_calls})
-        err, vs_b_err, cases = 0.0, 0.0, 0
-        for (_, metric, q, rows, ids, mask, c), per_b in zip(gathered, res):
+        err, cases = 0.0, 0
+        for (cell, metric, q, rows, ids, mask, c), per_b in zip(gathered,
+                                                                res):
             for b, got in per_b.items():
                 want = in_slabs(torch, lambda lo, hi: ref.distance_topk_ref(
                     q[lo:hi], c[lo:hi], ids[lo:hi], mask[lo:hi], K + 1,
                     metric), b)
                 err = max(err, compare_topk(torch, got, want, K))
-                want_b = fused_gather_topk(q[:b].contiguous(), ids[:b], rows,
+                # G scores each pair in B's order of sums: its distances are
+                # B's bit for bit, and its ids B's at every rank whose
+                # distance ties neither neighbour (B breaks ties by slot,
+                # G by id); B's k + 1 columns give the last rank's neighbour
+                bd, bi = fused_gather_topk(q[:b].contiguous(), ids[:b], rows,
                                            K + 1, metric)
-                vs_b_err = max(vs_b_err, compare_topk(torch, got, want_b, K))
+                gd, gi = got
+                untied = torch.ones_like(gi, dtype=torch.bool)
+                untied[:, 1:] &= bd[:, 1:K] != bd[:, :K - 1]
+                untied &= bd[:, :K] != bd[:, 1:]
+                check(torch.equal(gd.view(torch.int32),
+                                  bd[:, :K].contiguous().view(torch.int32))
+                      and torch.equal(gi[untied], bi[:, :K][untied]),
+                      f"kernel G differs from kernel B: {cell}, B = {b}")
                 check_scores(torch, METRICS[metric], q[:b], rows, got)
                 cases += 1
         # edges: an all-masked row with k > M, k = 128, and ties, whose ids
@@ -896,12 +972,21 @@ def main():
             "tied slots do not come out smallest id first")
         cases += 1
         emit({"phase": "compare", "path": "rerank", "cases": cases,
-              "max_abs_err": err, "vs_kernel_b_max_abs_err": vs_b_err,
+              "max_abs_err": err, "vs_kernel_b": "distances bitwise, ids "
+              "equal where untied",
               "ties": "smallest id first"})
 
         # G reads each valid slot's row once (a masked slot loads nothing),
         # the ids and the mask once: l2 3 operations per element, chi2
-        # CHI2_ISSUES issues per term
+        # CHI2_ISSUES issues per term.  Besides the path's cells: ISS-595
+        # under l2 and MNIST-784 under chi2 (which of d and the division
+        # costs the time), and ISS-595 under chi2 on the dense rows
+        mnist1, _, iss1 = gathered
+        gathered += [
+            (iss1[0], "l2") + iss1[2:],
+            (mnist1[0], "chi2") + mnist1[2:],
+            ("rpf_iss595 P=1 dense", "chi2", iss_q, iss_dense, iss1[4],
+             iss1[5], iss_dense[iss1[4].clamp_min(0).long()])]
         rows_out = []
         for cell, metric, q, rows, ids, mask, c in gathered:
             valid = int(mask.sum())
@@ -1225,11 +1310,25 @@ def main():
     # (l2: 3 operations per element; chi2: CHI2_ISSUES issues per term)
     fused_rows = []
     iss_cand4 = dedup_cand(iss_index.forest, iss_q, iss_rc, 4)
+    # stage 2 of rpf+int8: B over kernel C's shortlist of k' = 40 ids
+    short = {p: fused_gather_topk_int8(queries, cand[p], qdb.q, qdb.scale, kp,
+                                       "l2")[1] for p in PROBES}
+    # (the path's cells, then ISS-595 under l2 and MNIST-784 under chi2:
+    # which of d = 595's scalar path and chi2's division costs the time;
+    # and ISS-595 under chi2 on the dense rows)
     for cell, metric, q, rows, ids in (
             ("rpf_mnist784", "l2", queries, db, cand[1]),
             ("rpf_mnist784", "l2", queries, db, cand[4]),
             ("rpf_iss595", "chi2", iss_q, iss_db, iss_cand),
-            ("rpf_iss595", "chi2", iss_q, iss_db, iss_cand4)):
+            ("rpf_iss595", "chi2", iss_q, iss_db, iss_cand4),
+            ("rpf_iss595", "l2", iss_q, iss_db, iss_cand),
+            ("rpf_iss595", "l2", iss_q, iss_db, iss_cand4),
+            ("rpf_mnist784", "chi2", queries, db, cand[1]),
+            ("rpf_iss595 dense", "chi2", iss_q, iss_dense, iss_cand),
+            ("rpf_mnist784 / rpf+int8 stage 2 P=1", "l2", queries, qdb.fp,
+             short[1]),
+            ("rpf_mnist784 / rpf+int8 stage 2 P=4", "l2", queries, qdb.fp,
+             short[4])):
         ids = ids.contiguous()
         valid = int((ids >= 0).sum())
         b, m = ids.shape

@@ -23,29 +23,27 @@
 // once and nothing reuses it; the arithmetic is 3 flops an element for l2.
 // A masked slot loads nothing (its score is +inf whatever its row holds), so
 // the floor counts the valid slots' rows only.  The design is kernel B's
-// (fused_query.cu) without the gather: one block of 256 threads per query,
-// the query in shared memory; each warp takes slots in turn and its lanes
-// read the slot's contiguous row with coalesced 16-byte loads (scalar loads
-// when d % 4 != 0 or the rows are not 16-byte aligned); a 256-slot tile's
-// scores land in shared memory and those that beat the running k-th best
-// merge, by rank, into the running top-k in shared memory.
+// (fused_query.cu) without the gather, and its scoring loop is B's
+// (pair_score.cuh staged_scores): one block of 256 threads per query, the
+// query (and chi2's own terms) in shared memory; each warp takes slots in
+// turn, a slot's contiguous row staged in shared memory with cp.async one
+// slot ahead of the one being scored, and read as float4 groups where d %
+// 4 == 0 and the rows are 16-byte aligned, else one element a lane; a
+// 256-slot tile's scores land in shared memory and those that beat the
+// running k-th best merge, by rank, into the running top-k in shared
+// memory.  So a pair's score is B's bit for bit, and chi2 on ISS-595 sheds
+// what it cost B (fused_query.cu): the division waiting on loads, and 0 /
+// 1e-12 on the slow path.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "pair_score.cuh"
+
 #define THREADS 256
+#define WARPS (THREADS / 32)
 #define TILE 256
 #define KMAX 128
-#define EPS 1e-12f
-
-enum Metric { L2 = 0, CHI2 = 2 };
-
-template <int METRIC>
-__device__ __forceinline__ void accum(float x, float y, float& a) {
-  const float t = x - y;
-  if (METRIC == L2) a += t * t;
-  else a += t * t / (x + y + EPS);
-}
 
 // (score, id, slot): the slot makes every key unique, so ranks are a
 // permutation
@@ -64,7 +62,8 @@ __global__ void __launch_bounds__(THREADS)
                          const int* __restrict__ lo_s, float* __restrict__ out_d,
                          int* __restrict__ out_i, int* __restrict__ last_s, int M, int d,
                          int k) {
-  extern __shared__ __align__(16) float qs[];
+  // dynamic: the query, chi2's own terms, then each warp's ring
+  extern __shared__ __align__(16) float smem[];
   __shared__ float tile_d[TILE];
   __shared__ int tile_i[TILE];
   __shared__ float surv_d[TILE];
@@ -79,8 +78,16 @@ __global__ void __launch_bounds__(THREADS)
   const int* ids_b = ids + (size_t)b * M;
   const unsigned char* mask_b = mask + (size_t)b * M;
   const float* cand_b = cand + (size_t)b * M * d;
+  const int dp = (d + 3) & ~3;
+  float* qs = smem;
+  float* tt = qs + dp;
+  float* ring = tt + (METRIC == CHI2 ? dp : 0) + warp * STAGES * stage_stride(d);
 
-  for (int c = tid; c < d; c += THREADS) qs[c] = q[(size_t)b * d + c];
+  for (int c = tid; c < d; c += THREADS) {
+    const float x = q[(size_t)b * d + c];
+    qs[c] = x;
+    if (METRIC == CHI2) tt[c] = own_term(x);
+  }
   if (tid < k) {  // distinct (+inf, beyond-M) keys
     run_d[tid] = INFINITY;
     run_i[tid] = 0x7fffffff;
@@ -93,30 +100,11 @@ __global__ void __launch_bounds__(THREADS)
     // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
     const int first = base + warp * 32;
     const bool my_ok = first + lane < M && mask_b[first + lane];
-    const unsigned ok_bits = __ballot_sync(0xffffffffu, my_ok);
-    float my_score = INFINITY;
-    for (int i = 0; i < 32; ++i) {
-      if (!(ok_bits >> i & 1u)) continue;  // masked slot: no load, +inf
-      const float* row = cand_b + (size_t)(first + i) * d;
-      float a = 0.f;
-      if (VEC4) {
-        const float4* r4 = reinterpret_cast<const float4*>(row);
-        const float4* q4 = reinterpret_cast<const float4*>(qs);
-        for (int c = lane; c < (d >> 2); c += 32) {
-          const float4 y = __ldg(r4 + c);
-          const float4 x = q4[c];
-          accum<METRIC>(x.x, y.x, a);
-          accum<METRIC>(x.y, y.y, a);
-          accum<METRIC>(x.z, y.z, a);
-          accum<METRIC>(x.w, y.w, a);
-        }
-      } else {
-        for (int c = lane; c < d; c += 32) accum<METRIC>(qs[c], __ldg(row + c), a);
-      }
-      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-      if (lane == i) my_score = a;
-    }
-    tile_d[tid] = my_score;
+    // a masked slot: no load, +inf
+    const unsigned ok = __ballot_sync(0xffffffffu, my_ok);
+    tile_d[tid] = staged_scores<METRIC, VEC4>(
+        qs, tt, ring, d, lane, ok,
+        [&](int i) { return cand_b + (size_t)(first + i) * d; });
     tile_i[tid] = my_ok ? ids_b[first + lane] : 0;
     __syncthreads();
 
@@ -188,8 +176,8 @@ static int launch(const float* q, const float* cand, const int* ids,
                   const int* lo_s, float* out_d, int* out_i, int* last_s, int B, int M, int d,
                   int k, cudaStream_t stream) {
   auto kernel = distance_topk_kernel<METRIC, VEC4, ROUNDS>;
-  const size_t smem = (size_t)d * sizeof(float);
-  if (smem > 48 * 1024) {
+  const size_t smem = staged_smem_bytes(d, METRIC == CHI2, WARPS);
+  if (smem > 32 * 1024) {  // with the static tiles, past the 48 KB a block gets unasked
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

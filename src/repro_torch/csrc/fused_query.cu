@@ -21,22 +21,38 @@
 //
 // What bounds it on an H100: bytes.  Every valid slot reads one db row
 // (d x 4 B, 3,136 B at d = 784) that nothing else in the block reuses, and
-// the arithmetic is 3 flops per element, far below the card's ridge point.
-// The rows (188 MB for MNIST-784) do not fit the 50 MB L2, so the floor is
-// valid_slots x d x 4 B over the memory rate.  The design therefore moves
-// each row exactly once and never writes the (B, M, d) gathered block:
-// one block of 256 threads per query row, the query in shared memory; each
-// warp takes candidate slots in turn and its lanes read the row with
-// coalesced 16-byte loads, an empty slot (-1) issues no load; scores of a
-// 256-slot tile land in shared memory and only those that beat the running
-// k-th best are merged, by rank, into the running top-k kept in shared
-// memory.  Many blocks per SM keep enough loads in flight to cover latency.
+// the arithmetic is 3 flops per element for l2, far below the card's ridge
+// point.  The rows (188 MB for MNIST-784) do not fit the 50 MB L2, so the
+// floor is valid_slots x d x 4 B over the memory rate.  The design
+// therefore moves each row exactly once and never writes the (B, M, d)
+// gathered block: one block of 256 threads per query row, the query in
+// shared memory; each warp takes candidate slots in turn, an empty slot
+// (-1) issues no load; scores of a 256-slot tile land in shared memory and
+// only those that beat the running k-th best are merged, by rank, into the
+// running top-k kept in shared memory.
+//
+// chi2 (ISS-595, d = 595) ran at 3.2-3.4x that floor on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md) when each lane loaded its elements straight into
+// the term (l2 on the same rows ran at 1.03-1.06x), for two reasons
+// measured apart: an IEEE division waits on its row element's load and the
+// next load waits behind the division (dense rows, no element 0: 2.4x),
+// and a term with x = y = 0 divides 0 by 1e-12, the division's slow path,
+// on 71-80% of ISS-595's terms (another ~0.5 ms at M = 1920).  So under chi2 a warp's rows are staged in shared memory with
+// cp.async one slot ahead of the slot being scored (pair_score.cuh
+// staged_scores), and a row element of +-0 takes the query's own term,
+// computed once per query (accum_chi2): the same bits, with no 0 / 1e-12.
+// Kernel G runs the same loop over its pre-gathered rows.  l2, dot and
+// cosine keep the direct loads (direct_scores): they run at 1.0-1.1x the
+// floor, and over rows that mostly hit in L2 (the gather at M = N) the
+// staged copy's extra shared-memory traffic made them slower.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "pair_score.cuh"
 
 #define THREADS 256
+#define WARPS (THREADS / 32)
 #define TILE 256
 #define KMAX 128
 
@@ -45,16 +61,14 @@ __device__ __forceinline__ bool lex_less(float da, int sa, float db, int sb) {
 }
 
 template <int METRIC, bool VEC4>
-__global__ void fused_gather_topk_kernel(const float* __restrict__ q,
-                                         const int* __restrict__ ids,
-                                         const float* __restrict__ db,
-                                         const float* __restrict__ lo_d,
-                                         const int* __restrict__ lo_s,
-                                         float* __restrict__ out_d,
-                                         int* __restrict__ out_i,
-                                         int* __restrict__ last_s, int M, int N,
-                                         int d, int k) {
-  extern __shared__ float qs[];
+__global__ void __launch_bounds__(THREADS)
+    fused_gather_topk_kernel(const float* __restrict__ q, const int* __restrict__ ids,
+                             const float* __restrict__ db, const float* __restrict__ lo_d,
+                             const int* __restrict__ lo_s, float* __restrict__ out_d,
+                             int* __restrict__ out_i, int* __restrict__ last_s, int M, int N,
+                             int d, int k) {
+  // dynamic: the query, chi2's own terms, then each warp's ring
+  extern __shared__ __align__(16) float smem[];
   __shared__ float tile_d[TILE];
   __shared__ float surv_d[TILE];
   __shared__ int surv_s[TILE];
@@ -67,8 +81,16 @@ __global__ void fused_gather_topk_kernel(const float* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int* ids_b = ids + (size_t)b * M;
+  const int dp = (d + 3) & ~3;
+  float* qs = smem;
+  float* tt = qs + dp;
+  float* ring = tt + dp + warp * STAGES * stage_stride(d);  // chi2 only
 
-  for (int c = tid; c < d; c += THREADS) qs[c] = q[(size_t)b * d + c];
+  for (int c = tid; c < d; c += THREADS) {
+    const float x = q[(size_t)b * d + c];
+    qs[c] = x;
+    if (METRIC == CHI2) tt[c] = own_term(x);
+  }
   if (tid < k) {  // distinct (+inf, beyond-M) keys keep every rank unique
     run_d[tid] = INFINITY;
     run_s[tid] = M + tid;
@@ -90,18 +112,15 @@ __global__ void fused_gather_topk_kernel(const float* __restrict__ q,
     // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
     const int first = base + warp * 32;
     const int my_id = first + lane < M ? ids_b[first + lane] : -1;
-    float my_score = INFINITY;
-    for (int i = 0; i < 32; ++i) {
-      const int id = __shfl_sync(0xffffffffu, my_id, i);
-      if (id < 0) continue;  // empty slot: no load, scores +inf
-      const float* row = db + (size_t)min(id, N - 1) * d;
-      float a = 0.f, cc = 0.f;
-      lane_partial<METRIC, VEC4>(qs, row, d, lane, a, cc);
-      a = warp_sum(a);
-      if (METRIC == COSINE) cc = warp_sum(cc);
-      if (lane == i) my_score = finish<METRIC>(a, cc, q_norm);
-    }
-    tile_d[tid] = my_score;
+    // an empty slot: no load, scores +inf
+    const unsigned ok = __ballot_sync(0xffffffffu, my_id >= 0);
+    auto row_of = [&](int i) {
+      return db + (size_t)min(__shfl_sync(0xffffffffu, my_id, i), N - 1) * d;
+    };
+    if constexpr (METRIC == CHI2)
+      tile_d[tid] = staged_scores<METRIC, VEC4>(qs, tt, ring, d, lane, ok, row_of);
+    else
+      tile_d[tid] = direct_scores<METRIC, VEC4>(qs, d, lane, ok, row_of, q_norm);
     __syncthreads();
 
     // ---- keep only finite scores that beat the running k-th best
@@ -165,8 +184,10 @@ static int launch(const float* q, const int* ids, const float* db, const float* 
                   const int* lo_s, float* out_d, int* out_i, int* last_s, int B, int M, int N,
                   int d, int k, cudaStream_t stream) {
   auto kernel = fused_gather_topk_kernel<METRIC, VEC4>;
-  const size_t smem = (size_t)d * sizeof(float);
-  if (smem > 48 * 1024) {
+  // the query; under chi2 its own terms and the rows' rings too
+  const size_t smem = METRIC == CHI2 ? staged_smem_bytes(d, true, WARPS)
+                                     : sizeof(float) * (size_t)((d + 3) & ~3);
+  if (smem > 32 * 1024) {  // with the static tiles, past the 48 KB a block gets unasked
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -191,7 +212,9 @@ extern "C" int fused_gather_topk(const void* q, const void* ids, const void* db,
                                  void* last_s, int B, int M, int N, int d, int k, int metric,
                                  void* stream) {
   if (B == 0) return (int)cudaSuccess;
-  if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > KMAX || d < 1) return (int)cudaErrorInvalidValue;
+  // float4 reads of a staged row need it 16-byte aligned
+  if (d % 4 == 0 && (uintptr_t)db % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const float* qf = (const float*)q;
   const int* ii = (const int*)ids;
   const float* dbf = (const float*)db;

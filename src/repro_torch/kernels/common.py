@@ -34,6 +34,20 @@ EPS = 1e-12
 # the largest f32 block a plain version gathers or broadcasts at once
 GATHER_BUDGET_BYTES = 1 << 28
 
+# the shared memory of kernels B's and G's blocks, beside their static
+# tiles: the query row (and chi2's own terms), each padded to 16 bytes,
+# and where rows are staged (``ring``) each of the 8 warps' 2 row buffers
+# of min(d, 1024) + 3 floats, padded to 16 bytes (csrc/pair_score.cuh:
+# STAGES, CHUNK, stage_stride)
+SMEM_LIMIT = 232_448
+
+
+def gather_smem_bytes(d: int, chi2: bool, ring: bool) -> int:
+    dp = -(-d // 4) * 4
+    stride = (min(d, 1024) + 6) // 4 * 4
+    return 4 * (dp * (2 if chi2 else 1) + (8 * 2 * stride if ring else 0))
+
+
 LAUNCHES: collections.Counter = collections.Counter()
 REF_CALLS: collections.Counter = collections.Counter()
 

@@ -14,15 +14,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (LAUNCHES, check_tensor, pointers,
+from repro_torch.kernels.common import (LAUNCHES, SMEM_LIMIT, check_tensor,
+                                        gather_smem_bytes, pointers,
                                         topk_rounds)
 from repro_torch.kernels.ref import distance_topk_ref
 
 METRIC_CODES = {"l2": 0, "chi2": 2}
 # the kernel's top-k list; a larger k runs in rounds (``common.topk_rounds``)
 K_MAX = 128
-# a block's shared memory: the query row beside ~9 KB of static tiles
-_SMEM_LIMIT = 232_448
+# the kernel's static tiles (~8 KB)
 _SMEM_STATIC = 10_240
 
 
@@ -50,7 +50,7 @@ def distance_topk(q: torch.Tensor, cand: torch.Tensor, ids: torch.Tensor,
                          f"mask {tuple(mask.shape)}")
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
-    if 4 * d + _SMEM_STATIC > _SMEM_LIMIT:
+    if gather_smem_bytes(d, metric == "chi2", True) + _SMEM_STATIC > SMEM_LIMIT:
         raise ValueError(f"d = {d} does not fit a block's shared memory")
     fn = build.library("distance_topk").distance_topk
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -23,15 +23,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (LAUNCHES, check_tensor, pointers,
+from repro_torch.kernels.common import (LAUNCHES, SMEM_LIMIT, check_tensor,
+                                        gather_smem_bytes, pointers,
                                         topk_rounds)
 from repro_torch.kernels.matmul_topk import MAX_SLICES
 from repro_torch.kernels.ref import fused_gather_topk_ref, fused_scan_ref
 
 METRIC_CODES = {"l2": 0, "dot": 1, "chi2": 2, "cosine": 3}
 K_MAX = 128
-# a block's shared memory: the query row beside ~5 KB of static tiles
-_SMEM_LIMIT = 232_448
+# the gather's static tiles (~5 KB)
 _SMEM_STATIC = 8_192
 
 
@@ -59,8 +59,12 @@ def fused_gather_topk(q: torch.Tensor, ids: torch.Tensor, db: torch.Tensor,
         raise ValueError(f"k must be at least 1, got {k}")
     if n == 0:
         raise ValueError("db holds no rows")
-    if 4 * d + _SMEM_STATIC > _SMEM_LIMIT:
+    chi2 = metric == "chi2"                 # only chi2 stages its rows
+    if gather_smem_bytes(d, chi2, chi2) + _SMEM_STATIC > SMEM_LIMIT:
         raise ValueError(f"d = {d} does not fit a block's shared memory")
+    if d % 4 == 0 and db.data_ptr() % 16:
+        raise ValueError("db must start on a 16-byte boundary where d % 4 "
+                         "== 0 (the kernel reads its rows as float4)")
     fn = build.library("fused_query").fused_gather_topk
     stream = torch.cuda.current_stream(dev).cuda_stream
 

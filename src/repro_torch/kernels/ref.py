@@ -71,6 +71,21 @@ def fused_gather_topk_int8_ref(q: torch.Tensor, ids: torch.Tensor,
     return _slot_topk(scores, ids, k, lower, keys)
 
 
+def _id_topk(scores: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+             k: int, lower: Lower | None, keys: bool):
+    """The top-k by (score, id, slot) of G's plain versions."""
+    slots = torch.arange(ids.shape[1], dtype=torch.int32,
+                         device=ids.device).expand_as(ids)
+    scores = torch.where(mask & after(lower, scores, ids, slots), scores,
+                         POS_INF)
+    by_id = torch.sort(ids, dim=-1, stable=True).indices
+    d, pos = topk_smallest(torch.gather(scores, 1, by_id), k)
+    slot = torch.gather(by_id, 1, pos.clamp_min(0))
+    i = torch.gather(ids, 1, slot)
+    out = d, torch.where(torch.isinf(d), -1, i)
+    return out + ((d, i, slot.int()),) if keys else out
+
+
 def distance_topk_ref(q: torch.Tensor, cand: torch.Tensor, ids: torch.Tensor,
                       mask: torch.Tensor, k: int, metric: str = "l2",
                       lower: Lower | None = None, keys: bool = False):
@@ -88,16 +103,65 @@ def distance_topk_ref(q: torch.Tensor, cand: torch.Tensor, ids: torch.Tensor,
     if metric not in ("l2", "chi2"):
         raise ValueError(f"distance_topk scores l2 or chi2, not {metric!r}")
     scores = METRICS[metric](q.float()[:, None, :], cand.float())
-    slots = torch.arange(ids.shape[1], dtype=torch.int32,
-                         device=ids.device).expand_as(ids)
-    scores = torch.where(mask & after(lower, scores, ids, slots), scores,
-                         POS_INF)
-    by_id = torch.sort(ids, dim=-1, stable=True).indices
-    d, pos = topk_smallest(torch.gather(scores, 1, by_id), k)
-    slot = torch.gather(by_id, 1, pos.clamp_min(0))
-    i = torch.gather(ids, 1, slot)
-    out = d, torch.where(torch.isinf(d), -1, i)
-    return out + ((d, i, slot.int()),) if keys else out
+    return _id_topk(scores, ids, mask, k, lower, keys)
+
+
+def chi2_terms(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The kernels' chi2 term, elementwise: t = x - y; t * t / ((x + y) +
+    1e-12), each operation rounded once in fp32 (nothing in it can be
+    contracted into an FMA, so the card and the CPU give the same bits)."""
+    t = x - y
+    return t * t / (x + y + EPS)
+
+
+def lane_order_sum(terms: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., d) f32 terms -> (...): a pair's sum in kernels B's and G's
+    order (``csrc/pair_score.cuh``).  The d terms are dealt to 32 lane
+    classes in groups of ``w`` (4 where the kernel reads float4, else 1):
+    class l takes groups l, l + 32, ..., each group's terms in turn, and
+    adds them left to right from +0; the 32 partials are then summed as
+    the xor butterfly over offsets 16, 8, 4, 2, 1 sums them.  The tail is
+    padded with -0.0, which leaves every IEEE sum as it is."""
+    d = terms.shape[-1]
+    span = 32 * w
+    t = torch.nn.functional.pad(terms.float(), (0, -d % span), value=-0.0)
+    t = t.reshape(*terms.shape[:-1], -1, 32, w)
+    acc = t.new_zeros(t.shape[:-3] + (32,))
+    for step in range(t.shape[-3]):
+        for j in range(w):
+            acc = acc + t[..., step, :, j]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o:2 * o]
+    return acc[..., 0]
+
+
+def fused_gather_topk_lane_order(q: torch.Tensor, ids: torch.Tensor,
+                                 db: torch.Tensor, k: int,
+                                 lower: Lower | None = None,
+                                 keys: bool = False):
+    """``fused_gather_topk_ref`` under chi2 with kernel B's order of sums
+    (``lane_order_sum``, float4 groups where d % 4 == 0), so its distances
+    are bitwise the kernel's; ties to the earliest slot.  It gathers the
+    (B, M, d) block: for tests and ``chip_smoke.py``'s slab checks."""
+    REF_CALLS["fused_gather_topk_lane_order"] += 1
+    cand = db[ids.clamp(0, db.shape[0] - 1).long()].float()     # (B, M, d)
+    w = 4 if q.shape[1] % 4 == 0 else 1
+    scores = lane_order_sum(chi2_terms(q.float()[:, None, :], cand), w)
+    return _slot_topk(scores, ids, k, lower, keys)
+
+
+def distance_topk_lane_order(q: torch.Tensor, cand: torch.Tensor,
+                             ids: torch.Tensor, mask: torch.Tensor, k: int,
+                             lower: Lower | None = None, keys: bool = False):
+    """``distance_topk_ref`` under chi2 with kernel G's order of sums, which
+    is B's (``lane_order_sum``); ties to the smaller id.  G reads float4
+    groups where d % 4 == 0 and ``cand`` lies on a 16-byte boundary, as a
+    tensor's own storage does; this takes the boundary as given."""
+    REF_CALLS["distance_topk_lane_order"] += 1
+    w = 4 if q.shape[1] % 4 == 0 else 1
+    scores = lane_order_sum(chi2_terms(q.float()[:, None, :], cand.float()),
+                            w)
+    return _id_topk(scores, ids, mask, k, lower, keys)
 
 
 def embedding_bag_ref(ids: torch.Tensor, weights: torch.Tensor,
