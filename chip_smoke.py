@@ -61,7 +61,8 @@ Phases, each printing one JSON line:
            and dense slabs of ISS-595 with edge rows and an edge query, and
            kernels B and G under chi2 against their lane-order plain
            versions on the same slabs and on rows wider than a staged
-           chunk, at k = 10 and 129)
+           chunk, at k = 10 and 129); kernel D also at its tile edges (B =
+           129, N = 127 and 129, d = 595 and 785, a db 4 bytes off 16)
   scan     kernel B's scan against kernel B's gather over ids = arange(N),
            bit for bit in scores and ids: all 1024 MNIST-784 queries (l2,
            every row live and every 7th row dead), 128-query slabs for dot,
@@ -82,6 +83,9 @@ Phases, each printing one JSON line:
            mean candidates, build seconds
   profile  device time per search by kernel and the device's idle share
            (``torch.profiler`` over 5 searches of 1024 queries)
+  digests  the sha256 (16 hex digits) of kernels D's and C's outputs on
+           every case above and at the timed shapes, to compare two
+           builds' runs bit for bit
   done     the script's wall time
 
 then the kernels line (each kernel's launches, time, plain time and bound)
@@ -90,6 +94,7 @@ the script exits non-zero without that line.
 """
 import collections
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -154,6 +159,15 @@ def compare_topk(torch, got, want, k, tol=None):
     sep &= gap[:, :k] > tol[:, :k]
     check(torch.equal(gi[sep], wi[sep]), "ids differ at a separated rank")
     return float(err.max()) if err.numel() else 0.0
+
+
+def digest(out):
+    """The first 16 hex digits of the sha256 of a kernel's (dists, ids)
+    output, bit for bit: runs of two builds compare by it."""
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def check_scores(torch, metrics_fn, q, db, got):
@@ -306,7 +320,8 @@ def main():
     from repro_torch.kernels.forest_traverse_hbm import forest_traverse_hbm
     from repro_torch.kernels.fused_query import fused_gather_topk, fused_scan
     from repro_torch.kernels.fused_query_int8 import fused_gather_topk_int8
-    from repro_torch.kernels.matmul_topk import matmul_topk
+    from repro_torch.kernels.matmul_topk import (MAX_SLICES, matmul_topk,
+                                                 scan_outputs)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -314,6 +329,8 @@ def main():
     card = torch.cuda.get_device_name(0)
     counters = (LAUNCHES, REF_CALLS)
     launches_by_path = {}
+    # sha256 of kernels D's and C's outputs by case (phase ``digests``)
+    digests = {"matmul_topk": {}, "fused_gather_topk_int8": {}}
 
     # ---- card ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -408,6 +425,8 @@ def main():
 
     worst8 = 0.0
     for (p, b), got in results8.items():
+        digests["fused_gather_topk_int8"][f"rpf+int8 search P={p} B={b}"] = \
+            digest(got)
         want = in_slabs(torch, lambda lo, hi: int8_plain(queries[lo:hi], p),
                         b)
         worst8 = max(worst8, compare_topk(torch, got, want, K))
@@ -445,6 +464,8 @@ def main():
 
     brute_err = {}
     for m in ("l2", "dot"):
+        digests["matmul_topk"][f"ops.topk {m} 1024x60000x784 k={K}"] = \
+            digest(brute[m])
         want = in_slabs(torch, lambda lo, hi: ref.matmul_topk_ref(
             queries[lo:hi], db, K + 1, m), queries.shape[0])
         brute_err[m] = compare_topk(
@@ -557,10 +578,13 @@ def main():
                 (iss_q, iss_qdb, iss_cand[:7], 512)]
     int8_cases, int8_err = 0, 0.0
     for metric in ("l2", "dot", "chi2", "cosine"):
-        for qq, qd, ids, k in c_shapes:
+        for i, (qq, qd, ids, k) in enumerate(c_shapes):
             q = qq[:ids.shape[0]].contiguous()
             ids = ids.contiguous()
             got = fused_gather_topk_int8(q, ids, qd.q, qd.scale, k, metric)
+            digests["fused_gather_topk_int8"][
+                f"{metric} case {i}: {ids.shape[0]}x{ids.shape[1]} "
+                f"d={q.shape[1]} k={k}"] = digest(got)
             want = in_slabs(torch, lambda lo, hi: ref.fused_gather_topk_int8_ref(
                 q[lo:hi], ids[lo:hi], qd.q, qd.scale, k + 1, metric),
                 q.shape[0])
@@ -578,6 +602,8 @@ def main():
             q = (queries if rows_l2.shape[1] == queries.shape[1]
                  else iss_q)[:b].contiguous()
             got = matmul_topk(q, rows_l2, k, m)
+            digests["matmul_topk"][f"{m} {b}x{rows_l2.shape[0]}x"
+                                   f"{rows_l2.shape[1]} k={k}"] = digest(got)
             want = ref.matmul_topk_ref(q, rows_l2, k + 1, m)
             d_err = max(d_err, compare_topk(
                 torch, got, want, k,
@@ -592,6 +618,37 @@ def main():
             check(bool((got[1][:, rows_chi2.shape[0]:] == -1).all()),
                   "slots past N are not -1")
         scan_cases += 1
+    # kernel D at its tile edges (128 queries, 128 rows, 32 columns a step,
+    # each passed by one): B = 129, N = 127 and 129 (k = 128 past N: the
+    # slots past N +inf / -1), d = 595 and 785 (4-byte copies, and a tail
+    # of 19 and 17 columns), and a db that starts 4 bytes past a 16-byte
+    # boundary
+    q785 = torch.cat([queries[:129], queries[:129, :1]], 1)
+    db785 = torch.cat([db[:4099], db[:4099, :1]], 1)
+    n_off = min(4099, db.shape[0] - 1)
+    db_off = db.view(-1)[1:1 + n_off * db.shape[1]].view(n_off, -1)
+    for q, rows, k in [
+            (queries[:129], db, K), (queries[:129], db[:127], K),
+            (queries[:129], db[:129], 128), (queries[:7], db[:127], 128),
+            (iss_q[:129], iss_db[:4099], K), (iss_q[:7], iss_db[:129], 128),
+            (q785, db785, K), (q785[:7], db785[:129], 128),
+            (queries[:7], db_off, K)]:
+        q = q.contiguous()
+        for m in ("l2", "dot"):
+            got = matmul_topk(q, rows, k, m)
+            tag = (f"edge {m} {q.shape[0]}x{rows.shape[0]}x{rows.shape[1]} "
+                   f"k={k}{' offset' if rows.storage_offset() else ''}")
+            digests["matmul_topk"][tag] = digest(got)
+            want = ref.matmul_topk_ref(q, rows, k + 1, m)
+            d_err = max(d_err, compare_topk(
+                torch, got, want, k,
+                tol=expansion_tol(torch, q, rows, want[1])))
+            n = rows.shape[0]
+            check(n > k or (bool((got[1][:, n:] == -1).all())
+                            and bool(torch.isinf(got[0][:, n:]).all())),
+                  f"kernel D's slots past N = {n} are not +inf / -1")
+            scan_cases += 1
+    del q785, db785, db_off
     # kernel E bitwise against the d-ordered plain sum: 64 queries x 4096
     # rows of ISS-595 at k = 10 and 128, x 4096 dense rows (raised by 2e-3,
     # every 7th element of every other row negated: no element is 0, so
@@ -775,6 +832,9 @@ def main():
                     queries[:64], c64, ids64, mask64, kk)),
                 ("fused_scan", lambda kk: fused_scan(sq, db, kk))):
             big, small = fn(k), fn(K)
+            if name in digests:
+                digests[name][f"anyk {k}"] = digest(big)
+                digests[name][f"anyk {K} beside {k}"] = digest(small)
             w = small[0].shape[1]
             check(bitwise((big[0][:, :w].contiguous(),
                            big[1][:, :w].contiguous()), small),
@@ -1287,7 +1347,9 @@ def main():
                 feat, thresh, child, queries, rc.max_depth, p), 5, flush),
             "bound_ms": nbytes / rate * 1e3, "bytes": nbytes,
             "mean_levels": float(levels[ok].float().mean()),
-            "max_levels": int(levels.max())})
+            "max_levels": int(levels.max()),
+            # one thread's chain of dependent levels: its P descents
+            "chain_levels_max": int(levels.sum(-1).max())})
     # the latency of one level: a single thread descends a synthetic chain
     # of 127 nodes scattered through 3 x 64 MB arrays (thresh +inf sends
     # every step left, to child_base); the time over a 1-level descent,
@@ -1304,6 +1366,14 @@ def main():
     t_long, t_short = (time_ms(torch, lambda n=n: forest_traverse_hbm(
         c_feat, c_thresh, c_child, q_chain, n), 25, flush) for n in (hops, 1))
     per_level_us = (t_long - t_short) * 1e3 / (hops - 1)
+    # the same chain warm, from L2 (no flush): what a level costs at best
+    # once the forest is cached.  Kernel A's chain bound: its longest
+    # thread's levels, over all P descents, at that latency
+    t_long, t_short = (time_ms(torch, lambda n=n: forest_traverse_hbm(
+        c_feat, c_thresh, c_child, q_chain, n), 25) for n in (hops, 1))
+    per_level_l2_us = (t_long - t_short) * 1e3 / (hops - 1)
+    for row in trav_rows:
+        row["chain_bound_ms"] = row["chain_levels_max"] * per_level_l2_us / 1e3
     del c_feat, c_thresh, c_child
 
     # fused rerank: each valid slot reads its row once; ids, q, output once
@@ -1312,7 +1382,11 @@ def main():
     iss_cand4 = dedup_cand(iss_index.forest, iss_q, iss_rc, 4)
     # stage 2 of rpf+int8: B over kernel C's shortlist of k' = 40 ids
     short = {p: fused_gather_topk_int8(queries, cand[p], qdb.q, qdb.scale, kp,
-                                       "l2")[1] for p in PROBES}
+                                       "l2") for p in PROBES}
+    for p in PROBES:
+        digests["fused_gather_topk_int8"][
+            f"timed l2 1024x{cand[p].shape[1]} k={kp}"] = digest(short[p])
+    short = {p: short[p][1] for p in PROBES}
     # (the path's cells, then ISS-595 under l2 and MNIST-784 under chi2:
     # which of d = 595's scalar path and chi2's division costs the time;
     # and ISS-595 under chi2 on the dense rows)
@@ -1366,9 +1440,27 @@ def main():
 
     # exact scans: each input read once; D does 2 B N d flops
     bq_, bn_, bd_ = queries.shape[0], db.shape[0], db.shape[1]
+    for m in ("l2", "dot"):
+        digests["matmul_topk"][f"timed {m} {bq_}x{bn_}x{bd_} k={K}"] = digest(
+            matmul_topk(queries, db, K, m))
+    # kernel D alone under l2: its C entry with |q|^2 and |c|^2 computed
+    # outside the timed region (the wrapper's two torch.sum calls are the
+    # rest of "ms")
+    d_lib = build.library("scan_topk").scan_topk
+    d_sq = (torch.sum(queries * queries, dim=1), torch.sum(db * db, dim=1))
+    d_out = scan_outputs(queries, K)
+
+    def d_kernel():
+        build.check_launch(d_lib(
+            queries.data_ptr(), db.data_ptr(), d_sq[0].data_ptr(),
+            d_sq[1].data_ptr(), None, None, *(t.data_ptr() for t in d_out),
+            bq_, bn_, bd_, K, MAX_SLICES, 0,
+            torch.cuda.current_stream(dev).cuda_stream), "scan_topk")
+
     d_row = {
         "ms": time_ms(torch, lambda: matmul_topk(queries, db, K, "l2"), 10,
                       flush),
+        "kernel_only_ms": time_ms(torch, d_kernel, 10, flush),
         "dot_ms": time_ms(torch, lambda: matmul_topk(queries, db, K, "dot"),
                           10, flush),
         "plain_ms": time_ms(torch, lambda: ref.matmul_topk_ref(
@@ -1437,6 +1529,9 @@ def main():
         "terms": ib * in_ * id_, "issues_per_nonzero_term": CHI2_ISSUES,
         **e_work}
     torch.cuda.synchronize()
+    emit({"phase": "digests", "sha256_16": digests, "all": {
+        name: hashlib.sha256(json.dumps(d, sort_keys=True).encode()
+                             ).hexdigest()[:16] for name, d in digests.items()}})
     emit({"phase": "done", "wall_s": time.perf_counter() - wall0})
 
     def total(name):
@@ -1460,6 +1555,8 @@ def main():
          "bound_ms": t1["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "latency_per_level_us": per_level_us,
          "latency_floor_ms": per_level_us * t1["max_levels"] / 1e3,
+         "latency_per_level_l2_us": per_level_l2_us,
+         "chain_bound_ms": t1["chain_bound_ms"],
          "shapes": trav_rows},
         {"name": "fused_gather_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_query.cu",

@@ -18,33 +18,55 @@
 //
 // What bounds it on an H100: bytes.  Each valid slot reads d + 4 bytes
 // (the int8 row and its scale) that nothing else in the block reuses, and
-// the arithmetic is a handful of operations per element.  The design is
-// kernel B's (csrc/fused_query.cu): one block of 256 threads per query, the
-// query in shared memory, each warp takes slots in turn and its lanes read
-// the row with coalesced 16-byte loads (16 int8 values) where the rows are
-// 16-byte aligned (d % 16 == 0, as at d = 784), byte loads otherwise (d =
-// 595); an empty slot issues no load; a tile's scores are merged by rank
-// into the running top-k' kept in shared memory.  The fp32 row is never
-// read and no dequantized block is ever written.
+// the arithmetic is a handful of operations per element.  Reaching the
+// byte rate takes about 25 KB of loads in flight on every SM (3.35 TB/s
+// times the ~1 us latency of a loaded DRAM read, over 132 SMs).  The
+// design:
+//   - one block of 128 threads per query, the query in shared memory, and
+//     at most 64 registers a thread, so that 8 blocks fit an SM and a
+//     batch of up to 1,056 queries runs in one wave;
+//   - the valid slots of each 256-slot tile are listed first, and the
+//     warps take them in groups of 4: a warp issues all 4 slots' loads
+//     (scale, and the lane's 16-byte chunks of the row: chunks lane and
+//     lane + 32) before it converts and sums any of them, so 4 rows are
+//     in flight per warp and no warp walks an empty slot; the next
+//     tile's ids are loaded while this one is scored;
+//   - an int8 value v becomes a float without the quarter-rate I2F for
+//     three bytes of each word: the byte of w ^ 0x80808080 (v + 128) is
+//     placed by PRMT in the mantissa of 2^23, and 2^23 + 128 is
+//     subtracted; both steps are exact, so the float is (float)v.  Byte 0
+//     keeps I2F.S8 (one instruction, on its own pipe);
+//   - rows that are not 16-byte aligned (d % 16 != 0, as d = 595) are read
+//     a byte a lane, one slot at a time, as are rows of more than 1024
+//     bytes (d / 16 > 64 chunks); an empty slot issues no load;
+//   - a tile's scores that beat the running k'-th key are merged by rank
+//     into the running top-k' kept in shared memory.  The fp32 row is
+//     never read and no dequantized block is ever written.
 //
-// Rounding: the dequantized value is __fmul_rn(q8, s), so nvcc cannot
-// contract x - q8 * s into one FMA; it is rounded exactly as the
-// reference's rows.astype(f32) * scale.  The only difference left is the
-// order of the d-term sums.
+// Rounding: the dequantized value is __fmul_rn(v, s), so nvcc cannot
+// contract x - v * s into one FMA; it is rounded exactly as the
+// reference's rows.astype(f32) * scale.  Lane l sums its elements in row
+// order (chunk l, then chunk l + 32; element l, l + 32, ... on the byte
+// path) from +0, then the lanes are added by an xor butterfly (16, 8, 4,
+// 2, 1), as in every earlier version of this kernel, so the bits are
+// those of every earlier version.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define THREADS 256
+#define THREADS 128
+#define WARPS (THREADS / 32)
 #define TILE 256
+#define GROUP 4       // slots whose loads a warp has in flight at once
+#define MAX_CHUNKS 64  // 16-byte chunks of a row on the grouped path
 #define KMAX 512
 #define EPS 1e-12f
 
 enum Metric { L2 = 0, DOT = 1, CHI2 = 2, COSINE = 3 };
 
 template <int METRIC>
-__device__ __forceinline__ void accum(float x, int v, float s, float& a, float& c) {
-  const float y = __fmul_rn((float)v, s);
+__device__ __forceinline__ void accum(float x, float v, float s, float& a, float& c) {
+  const float y = __fmul_rn(v, s);
   if (METRIC == L2) {
     const float t = x - y;
     a += t * t;
@@ -59,27 +81,83 @@ __device__ __forceinline__ void accum(float x, int v, float s, float& a, float& 
   }
 }
 
+// byte j of wb = w ^ 0x80808080 as the float of w's int8 byte j, exactly
+__device__ __forceinline__ float byte_value(unsigned wb, int j) {
+  return __int_as_float(__byte_perm(wb, 0x4B000000u, 0x7540 + j)) - 8388736.0f;
+}
+
+// the 16 elements of one 16-byte chunk, in order; qc: the query's matching
+// 16 floats
+template <int METRIC>
+__device__ __forceinline__ void accum_chunk(const float* qc, int4 v, float s, float& a,
+                                            float& c) {
+  const unsigned w[4] = {(unsigned)v.x ^ 0x80808080u, (unsigned)v.y ^ 0x80808080u,
+                         (unsigned)v.z ^ 0x80808080u, (unsigned)v.w ^ 0x80808080u};
+  const float4* q4 = reinterpret_cast<const float4*>(qc);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 x = q4[j];
+    accum<METRIC>(x.x, byte_value(w[j], 0), s, a, c);
+    accum<METRIC>(x.y, byte_value(w[j], 1), s, a, c);
+    accum<METRIC>(x.z, byte_value(w[j], 2), s, a, c);
+    accum<METRIC>(x.w, byte_value(w[j], 3), s, a, c);
+  }
+}
+
+// one 16-byte chunk of each of GROUP rows against the same 16 query floats:
+// the rows' sums are independent chains, each in element order
+template <int METRIC>
+__device__ __forceinline__ void accum_chunks(const float* qc, const int4 (&v)[GROUP],
+                                             const float (&s)[GROUP], float (&a)[GROUP],
+                                             float (&c)[GROUP]) {
+  const float4* q4 = reinterpret_cast<const float4*>(qc);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 x = q4[j];
+#pragma unroll
+    for (int u = 0; u < GROUP; ++u) {
+      const int vj = j == 0 ? v[u].x : j == 1 ? v[u].y : j == 2 ? v[u].z : v[u].w;
+      const unsigned w = (unsigned)vj ^ 0x80808080u;
+      accum<METRIC>(x.x, (float)(signed char)(vj & 0xff), s[u], a[u], c[u]);  // I2F.S8
+      accum<METRIC>(x.y, byte_value(w, 1), s[u], a[u], c[u]);
+      accum<METRIC>(x.z, byte_value(w, 2), s[u], a[u], c[u]);
+      accum<METRIC>(x.w, byte_value(w, 3), s[u], a[u], c[u]);
+    }
+  }
+}
+
+// the lanes' partial sums -> the slot's score (every lane gets it)
+template <int METRIC>
+__device__ __forceinline__ float finish(float a, float cc, float q_norm) {
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    if (METRIC == COSINE) cc += __shfl_xor_sync(0xffffffffu, cc, o);
+  }
+  if (METRIC == DOT) return -a;
+  if (METRIC == COSINE) return 1.f - a / (q_norm * (sqrtf(cc) + EPS));
+  return a;
+}
+
 __device__ __forceinline__ bool lex_less(float da, int sa, float db, int sb) {
   return da < db || (da == db && sa < sb);
 }
 
 template <int METRIC, bool VEC16>
-__global__ void fused_gather_topk_int8_kernel(const float* __restrict__ q,
-                                              const int* __restrict__ ids,
-                                              const int8_t* __restrict__ q8,
-                                              const float* __restrict__ scale,
-                                              const float* __restrict__ lo_d,
-                                              const int* __restrict__ lo_s,
-                                              float* __restrict__ out_d,
-                                              int* __restrict__ out_i,
-                                              int* __restrict__ last_s, int M, int N,
-                                              int d, int k) {
+__global__ void __launch_bounds__(THREADS, 8)
+    fused_gather_topk_int8_kernel(const float* __restrict__ q, const int* __restrict__ ids,
+                                  const int8_t* __restrict__ q8,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ lo_d, const int* __restrict__ lo_s,
+                                  float* __restrict__ out_d, int* __restrict__ out_i,
+                                  int* __restrict__ last_s, int M, int N, int d, int k) {
   extern __shared__ __align__(16) float qs[];
   __shared__ float tile_d[TILE];
   __shared__ float surv_d[TILE];
   __shared__ int surv_s[TILE];
   __shared__ float run_d[KMAX], nxt_d[KMAX];
   __shared__ int run_s[KMAX], nxt_s[KMAX];
+  __shared__ int list_slot[TILE], list_id[TILE];  // the tile's valid slots
+  __shared__ int n_valid[2 * WARPS];
   __shared__ int n_surv;
   __shared__ float q_norm;
 
@@ -107,55 +185,111 @@ __global__ void fused_gather_topk_int8_kernel(const float* __restrict__ q,
   const bool lower = lo_d != nullptr;
   const float low_d = lower ? lo_d[b] : 0.f;
   const int low_s = lower ? lo_s[b] : 0;
+  const float qn = METRIC == COSINE ? q_norm : 0.f;
+  const int n_chunks = d >> 4;
+  const bool grouped = VEC16 && n_chunks <= MAX_CHUNKS;
+  const unsigned below = (1u << lane) - 1u;
+
+  // thread t holds the ids of slots base + t and base + THREADS + t; the
+  // next tile's are loaded while this one is scored
+  int id0 = tid < M ? ids_b[tid] : -1;
+  int id1 = THREADS + tid < M ? ids_b[THREADS + tid] : -1;
 
   for (int base = 0; base < M; base += TILE) {
-    // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
-    const int first = base + warp * 32;
-    const int my_id = first + lane < M ? ids_b[first + lane] : -1;
-    float my_score = INFINITY;
-    for (int i = 0; i < 32; ++i) {
-      const int id = __shfl_sync(0xffffffffu, my_id, i);
-      if (id < 0) continue;  // empty slot: no load, scores +inf
-      const size_t row_id = (size_t)min(id, N - 1);
-      const int8_t* row = q8 + row_id * d;
-      const float s = __ldg(scale + row_id);
-      float a = 0.f, cc = 0.f;
-      if (VEC16) {
-        const int4* r16 = reinterpret_cast<const int4*>(row);
-        for (int c = lane; c < (d >> 4); c += 32) {
-          const int4 v = __ldg(r16 + c);
-          const int w[4] = {v.x, v.y, v.z, v.w};
-          const float4* q4 = reinterpret_cast<const float4*>(qs + 16 * c);
+    const int nb = base + TILE;
+    const int nx0 = nb + tid < M ? ids_b[nb + tid] : -1;
+    const int nx1 = nb + THREADS + tid < M ? ids_b[nb + THREADS + tid] : -1;
+
+    // ---- list the tile's valid slots (slot order within each half)
+    const unsigned m0 = __ballot_sync(0xffffffffu, id0 >= 0);
+    const unsigned m1 = __ballot_sync(0xffffffffu, id1 >= 0);
+    if (lane == 0) {
+      n_valid[warp] = __popc(m0);
+      n_valid[WARPS + warp] = __popc(m1);
+    }
+    tile_d[tid] = INFINITY;
+    tile_d[THREADS + tid] = INFINITY;
+    __syncthreads();
+    int off0 = 0, nv = 0;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4 x = q4[j];
-            const int u = w[j];
-            accum<METRIC>(x.x, (int)(int8_t)(u & 0xff), s, a, cc);
-            accum<METRIC>(x.y, (int)(int8_t)((u >> 8) & 0xff), s, a, cc);
-            accum<METRIC>(x.z, (int)(int8_t)((u >> 16) & 0xff), s, a, cc);
-            accum<METRIC>(x.w, (int)(int8_t)((u >> 24) & 0xff), s, a, cc);
+    for (int w = 0; w < 2 * WARPS; ++w) {
+      off0 += w < warp ? n_valid[w] : 0;
+      nv += n_valid[w];
+    }
+    int off1 = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS + warp; ++w) off1 += n_valid[w];
+    if (id0 >= 0) {
+      const int p = off0 + __popc(m0 & below);
+      list_slot[p] = tid;
+      list_id[p] = id0;
+    }
+    if (id1 >= 0) {
+      const int p = off1 + __popc(m1 & below);
+      list_slot[p] = THREADS + tid;
+      list_id[p] = id1;
+    }
+    __syncthreads();
+
+    // ---- score the valid slots: warp w takes groups w, w + WARPS, ... of
+    //      GROUP listed slots, issuing the group's loads before any of its
+    //      sums; every lane ends with each slot's score
+    if (grouped) {
+      for (int g = warp * GROUP; g < nv; g += WARPS * GROUP) {
+        int id[GROUP];
+        float s[GROUP];
+        int4 v0[GROUP], v1[GROUP];
+#pragma unroll
+        for (int u = 0; u < GROUP; ++u) {
+          id[u] = g + u < nv ? list_id[g + u] : -1;
+          s[u] = 0.f;
+          v0[u] = v1[u] = make_int4(0, 0, 0, 0);
+          if (id[u] >= 0) {
+            const size_t row_id = (size_t)min(id[u], N - 1);
+            const int4* r16 = reinterpret_cast<const int4*>(q8 + row_id * d);
+            s[u] = __ldg(scale + row_id);
+            if (lane < n_chunks) v0[u] = __ldg(r16 + lane);
+            if (lane + 32 < n_chunks) v1[u] = __ldg(r16 + lane + 32);
           }
         }
-      } else {
-        for (int c = lane; c < d; c += 32) accum<METRIC>(qs[c], (int)__ldg(row + c), s, a, cc);
+        float a[GROUP], cc[GROUP];
+#pragma unroll
+        for (int u = 0; u < GROUP; ++u) a[u] = cc[u] = 0.f;
+        if (lane < n_chunks) accum_chunks<METRIC>(qs + 16 * lane, v0, s, a, cc);
+        if (lane + 32 < n_chunks) accum_chunks<METRIC>(qs + 16 * (lane + 32), v1, s, a, cc);
+#pragma unroll
+        for (int u = 0; u < GROUP; ++u) {
+          const float score = finish<METRIC>(a[u], cc[u], qn);
+          if (lane == u && g + u < nv) tile_d[list_slot[g + u]] = score;
+        }
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, o);
-        if (METRIC == COSINE) cc += __shfl_xor_sync(0xffffffffu, cc, o);
-      }
-      if (lane == i) {
-        if (METRIC == DOT) my_score = -a;
-        else if (METRIC == COSINE) my_score = 1.f - a / (q_norm * (sqrtf(cc) + EPS));
-        else my_score = a;
+    } else {
+      for (int p = warp; p < nv; p += WARPS) {
+        const int id = list_id[p];
+        const size_t row_id = (size_t)min(id, N - 1);
+        const int8_t* row = q8 + row_id * d;
+        const float s = __ldg(scale + row_id);
+        float a = 0.f, cc = 0.f;
+        if (VEC16) {
+          const int4* r16 = reinterpret_cast<const int4*>(row);
+          for (int c = lane; c < n_chunks; c += 32)
+            accum_chunk<METRIC>(qs + 16 * c, __ldg(r16 + c), s, a, cc);
+        } else {
+          for (int c = lane; c < d; c += 32)
+            accum<METRIC>(qs[c], (float)__ldg(row + c), s, a, cc);
+        }
+        const float score = finish<METRIC>(a, cc, qn);
+        if (lane == 0) tile_d[list_slot[p]] = score;
       }
     }
-    tile_d[tid] = my_score;
+    id0 = nx0;
+    id1 = nx1;
     __syncthreads();
 
     // ---- keep only finite scores that beat the running k-th best
-    {
-      const float s = tile_d[tid];
-      const int slot = base + tid;
+    for (int t = tid; t < TILE; t += THREADS) {
+      const float s = tile_d[t];
+      const int slot = base + t;
       if (slot < M && isfinite(s) && (!lower || lex_less(low_d, low_s, s, slot)) &&
           lex_less(s, slot, run_d[k - 1], run_s[k - 1])) {
         const int pos = atomicAdd(&n_surv, 1);
@@ -169,9 +303,9 @@ __global__ void fused_gather_topk_int8_kernel(const float* __restrict__ q,
     //      so ranks are a permutation and each of the k places fills once)
     const int ns = n_surv;
     if (ns > 0) {
-      if (tid < ns) {
-        const float s = surv_d[tid];
-        const int slot = surv_s[tid];
+      for (int t = tid; t < ns; t += THREADS) {
+        const float s = surv_d[t];
+        const int slot = surv_s[t];
         // the running list is sorted: binary-search the entries below
         int lo = 0, hi = k;
         while (lo < hi) {
@@ -220,11 +354,15 @@ static int launch(const float* q, const int* ids, const int8_t* q8, const float*
                   int B, int M, int N, int d, int k, cudaStream_t stream) {
   auto kernel = fused_gather_topk_int8_kernel<METRIC, VEC16>;
   const size_t smem = (size_t)d * sizeof(float);
-  if (smem > 48 * 1024 - 16 * 1024) {  // static tiles take 11 KB of the 48
+  if (smem > 48 * 1024 - 16 * 1024) {  // static tiles take 13 KB of the 48
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  // 8 blocks an SM need 8 x 15 KB of shared memory
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<B, THREADS, smem, stream>>>(q, ids, q8, scale, lo_d, lo_s, out_d, out_i, last_s, M,
                                        N, d, k);
   return (int)cudaGetLastError();

@@ -6,8 +6,12 @@ tensors on a CUDA device and runs its plain version
 (``ref.fused_gather_topk_int8_ref``) for tensors on the CPU.  The kernel
 reads each valid candidate's int8 row and its f32 scale (d + 4 bytes, not
 the 4d of the fp32 row), dequantizes in registers and never writes a
-dequantized block.  Its top-k' list holds ``K_MAX`` = 512 (k = 128 at
-expand 4); a larger k' runs in rounds (``common.topk_rounds``).
+dequantized block.  It is bound by those bytes, so it keeps many rows in
+flight: one 128-thread block per query, 8 blocks an SM, each warp loading
+four listed valid slots before it sums any of them, and an int8 -> f32
+conversion that is exact without the quarter-rate ``I2F`` for three bytes
+of four.  Its top-k' list holds ``K_MAX`` = 512 (k = 128 at expand 4); a
+larger k' runs in rounds (``common.topk_rounds``).
 """
 from __future__ import annotations
 

@@ -4,13 +4,19 @@ shares with kernel E (``kernels/chi2_topk.py``).
 
 ``matmul_topk`` launches ``csrc/scan_topk.cu`` for tensors on a CUDA device
 and runs its plain version (``ref.matmul_topk_ref``) for tensors on the
-CPU.  The kernel scores a tile of queries against a tile of db rows
-staged in shared memory and keeps a running top-k per query; the (B, N)
-score matrix is never written.  The rows are cut into up to 32 slices so
-that one wave of blocks fills the card; each slice leaves its own top-k
-and a second kernel merges the lists of a query, ties to the smaller id.
-l2 adds |q|^2 and |c|^2 to the kernel's fp32 cross product as the
-reference does; both are small vectors computed here.
+CPU.  The kernel is bound by its fp32 FFMAs (2 B N d flops, 1.44 ms for
+1024 queries against MNIST-784 on an H100), so its operands come from
+registers: a block scores 128 queries against 128-row tiles, each thread
+an 8 x 8 block of sums, with both tiles streamed through shared memory by
+cp.async two or three 32-column steps ahead.  Each sum is one FFMA chain
+over d in order, so the scores, and the output, are bit for bit those of
+any other tiling.  Survivors of each tile (scores below a query's k-th
+key) are merged by rank into a running top-k per query; the (B, N) score
+matrix is never written.  The rows are cut into up to 32 slices so that
+one wave of blocks fills the card; each slice leaves its own top-k and a
+second kernel merges the lists of a query, ties to the smaller id.  l2
+adds |q|^2 and |c|^2 to the kernel's fp32 cross product as the reference
+does; both are small vectors computed here.
 """
 from __future__ import annotations
 

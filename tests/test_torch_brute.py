@@ -56,7 +56,11 @@ def _assert_topk(got, want, q=None, db=None):
 
 
 @pytest.mark.parametrize("metric", ["l2", "dot"])
-@pytest.mark.parametrize("b,n,d,k", [(9, 300, 16, 7), (1, 50, 784, 10)])
+@pytest.mark.parametrize("b,n,d,k", [
+    (9, 300, 16, 7), (1, 50, 784, 10),
+    # kernel D's tile edges: 128 queries, 128 rows and 32 columns a step,
+    # each passed by one
+    (129, 257, 785, 10), (129, 127, 595, 10), (7, 129, 33, 10)])
 def test_matmul_topk_ref_matches_reference(metric, b, n, d, k):
     q, db = _inputs(b, n, d, seed=b + n)
     got = tref.matmul_topk_ref(torch.from_numpy(q), torch.from_numpy(db), k,

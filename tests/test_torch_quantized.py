@@ -117,6 +117,30 @@ def test_int8_ref_rounds_match_reference(metric, k):
     assert torch.equal(got[1][:, :10], small[1])
 
 
+@pytest.mark.parametrize("scale", [
+    1.0, 0.0078125, 3.7e-3, 0.1, 1.5, 123.456, -2.5e-2,
+    # subnormal, the smallest normal, and huge (v * s overflows to inf)
+    1e-45, 2.3e-41, 1.1754944e-38, 3.0e36, 3.4e38])
+def test_int8_biased_float_conversion_is_exact(scale):
+    """Kernel C's conversion of the int8 bytes of a 32-bit word (xor
+    0x80808080, the byte in the mantissa of 2^23, less 2^23 + 128), done on
+    uint32 views, gives np.float32(v) and then the same v * s bits, for all
+    256 values."""
+    v = np.arange(-128, 128, dtype=np.int8)
+    words = v.view(np.uint32) ^ np.uint32(0x80808080)
+    got = np.empty(256, dtype=np.float32)
+    for j in range(4):                               # byte j of each word
+        byte = (words >> np.uint32(8 * j)) & np.uint32(0xFF)
+        biased = (np.uint32(0x4B000000) | byte).view(np.float32)
+        got[j::4] = biased - np.float32(8388736.0)
+    want = v.astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    s = np.float32(scale)
+    with np.errstate(over="ignore"):
+        np.testing.assert_array_equal((got * s).view(np.uint32),
+                                      (want * s).view(np.uint32))
+
+
 def test_int8_kernel_pallas_interpret_case():
     from repro.kernels.fused_query_int8 import fused_gather_topk_int8 as pallas
     q, ids, x = _int8_inputs(3, 40, 60, 8, 0.25, seed=5)
