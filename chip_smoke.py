@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py          # from the repository root, one CUDA GPU
+    python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
+                                            # which refused deeper trees
 
-Eight paths, each driven through the entry points a user calls, with every
+Nine paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -21,6 +23,11 @@ version may have run):
   iss595   ``build_index`` on ``iss_like`` at the paper's ISS-595
            configuration (N = 250,736, d = 595, L = 160, chi2) and 1024
            queries at 1 and 4 probes (kernels A and B at d = 595)
+  deep     ``build_index`` on 6,000 MNIST-784 rows with 8 trees and
+           ``max_depth = 160`` (past the 128 levels kernels A and F once
+           refused; ``--depth-cap`` lowers it, and drops the deeper chains
+           below) and ``Index.search`` of 64 queries at 1 and 4 probes
+           (kernels A and B)
   tree     ``ops.traverse_tree(kernel="smem")`` on every tree of the
            MNIST-784 forest, sliced to its used nodes, for 1, 7 and 1024
            queries at 1 and 4 probes (kernel F); ``kernel="auto"`` on an
@@ -52,8 +59,14 @@ Phases, each printing one JSON line:
            rank whose distance is separated from its neighbours by more
            than that, and every returned id scores its returned distance
   kernels  each kernel against its plain version at the paths' shapes and
-           at edge shapes: the descents bitwise (kernel F also against
-           kernel A), the others by the rule above (kernel G also against
+           at edge shapes: the descents bitwise -- kernel A on MNIST-784 at
+           1, 3, 4 and 8 probes, on ties (thresholds and queries on one
+           grid), NaN and +-inf query elements at 1, 3, 4, 8 and 9 probes,
+           more probes than levels, ISS-595 at 1 and 4 probes, and chains
+           150 and 200 levels deep (``chain_forest``) at 1, 4 and 9 probes;
+           kernel F on the chains and the edge queries, bitwise kernel A --
+           B's small-M path (M <= 128) at d = 784 and 595 under l2, dot
+           and cosine; the others by the rule above (kernel G also against
            kernel B on the same ids: distances bit for bit, ids equal at
            every untied rank; kernel H within 1e-5 sum_h |w row| + 1e-6 of
            its plain version, at every launch shape it takes; kernel E also
@@ -83,12 +96,15 @@ Phases, each printing one JSON line:
            mean candidates, build seconds
   profile  device time per search by kernel and the device's idle share
            (``torch.profiler`` over 5 searches of 1024 queries)
-  digests  the sha256 (16 hex digits) of kernels D's and C's outputs on
-           every case above and at the timed shapes, to compare two
-           builds' runs bit for bit
+  digests  the sha256 (16 hex digits) of kernels A's, B's, C's and D's
+           outputs on every case above, at the timed shapes (B's stage-2
+           shortlists) and in the any-k rounds, to compare two builds' runs
+           bit for bit
   done     the script's wall time
 
-then the kernels line (each kernel's launches, time, plain time and bound)
+then the kernels line (each kernel's launches, time, plain time and bound;
+kernel A's on MNIST-784 and ISS-595 beside its two chain bounds, from the
+latency of one dependent load that ``csrc/pointer_chase.cu`` measures)
 and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the script exits non-zero without that line.
 """
@@ -294,8 +310,95 @@ def node_depths(torch, child_base, max_depth):
     return depth
 
 
+def descent_edge_inputs(torch, feat, thresh, child, q):
+    """Kernel A's edge inputs on a forest: its thresholds and 256 queries on
+    one grid of 1/8 (ties of margins, and q[feat] == thresh), and 256
+    queries with NaN, +inf and -inf elements."""
+    qe = q[:256].clone()
+    qe[0] = float("nan")
+    qe[1, ::3] = float("inf")
+    qe[2, 1::3] = float("-inf")
+    qe[3, ::7] = float("nan")
+    qe[4, ::2], qe[4, 1::2] = float("inf"), float("-inf")
+    return {"grid": (feat, torch.round(thresh * 8) / 8, child,
+                     torch.round(q[:256] * 8) / 8),
+            "nan / inf": (feat, thresh, child, qe)}
+
+
+def chain_forest(torch, depth, d, n_trees, n_queries, gen, dev):
+    """A forest of chains ``depth`` levels deep, past the 128 levels the
+    port's kernels A and F once capped.  The path node at depth t has
+    children 2t + 1 and 2t + 2: one is a leaf, the other the next path
+    node, and the test sends most queries to the latter (a threshold below
+    or above the queries' [0, 1)); on about one level in 25 the threshold
+    falls inside [0, 1), so queries leave the chain at every depth and
+    their alternates flip near the root, deep and in between.  Returns
+    feat, thresh, child_base (n_trees, 2 depth + 1) and queries (n_queries,
+    d) in [0, 1), every 9th element NaN in query 1."""
+    n = 2 * depth + 1
+    t = torch.arange(depth, device=dev)
+    right = torch.rand((n_trees, depth), generator=gen, device=dev) < 0.5
+    inside = torch.rand((n_trees, depth), generator=gen, device=dev) < 0.04
+    u = torch.rand((n_trees, depth), generator=gen, device=dev)
+    path = torch.zeros((n_trees, depth), dtype=torch.long, device=dev)
+    path[:, 1:] = 2 * t[1:] - 1 + right[:, :-1].long()
+    rows = torch.arange(n_trees, device=dev)[:, None].expand_as(path)
+    feat = torch.zeros((n_trees, n), dtype=torch.int32, device=dev)
+    thresh = torch.zeros((n_trees, n), device=dev)
+    child = torch.full((n_trees, n), -1, dtype=torch.int32, device=dev)
+    feat[rows, path] = torch.randint(0, d, (n_trees, depth), generator=gen,
+                                     device=dev, dtype=torch.int32)
+    thresh[rows, path] = torch.where(inside, u, torch.where(right, -u, 1 + u))
+    child[rows, path] = (2 * t + 1).int().expand_as(path)
+    q = torch.rand((n_queries, d), generator=gen, device=dev)
+    q[1, ::9] = float("nan")
+    return feat, thresh, child, q
+
+
+def least_chain_levels(torch, child_base, depth, leaves):
+    """(L, B, P) leaf ids (-1 absent) -> (L, B) levels of kernel A's chain
+    for each (tree, query): the primary's levels plus the deepest
+    alternate's levels below its flip.  An alternate flips where its path
+    leaves the primary's, at the lowest common ancestor of the two leaves,
+    found by climbing both through the parent of every node."""
+    n_trees, m = child_base.shape
+    rows = torch.arange(n_trees, device=child_base.device)[:, None]
+    cb = child_base.long()
+    parent = torch.zeros((n_trees, m), dtype=torch.long,
+                         device=child_base.device)
+    r, n = torch.nonzero(cb >= 0, as_tuple=True)
+    parent[r, cb[r, n]] = n
+    parent[r, cb[r, n] + 1] = n
+    l_idx = rows[:, :, None]
+    prim = leaves[..., :1].long().expand_as(leaves[..., 1:])
+    alt = leaves[..., 1:].long()
+    ok = alt >= 0
+    a, z = alt.clamp_min(0), prim
+    da, dz = depth[l_idx, a], depth[l_idx, z]
+    while True:                # the deeper of the two climbs first
+        up_a, up_z = da > dz, dz > da
+        if not bool(up_a.any() or up_z.any()):
+            break
+        a = torch.where(up_a, parent[l_idx, a], a)
+        z = torch.where(up_z, parent[l_idx, z], z)
+        da, dz = da - up_a.long(), dz - up_z.long()
+    while True:                # then both, until they meet
+        apart = a != z
+        if not bool(apart.any()):
+            break
+        a = torch.where(apart, parent[l_idx, a], a)
+        z = torch.where(apart, parent[l_idx, z], z)
+        da = da - apart.long()
+    below = torch.where(ok, depth[l_idx, alt.clamp_min(0)] - da - 1, 0)
+    base = depth[rows, leaves[..., 0].long()]
+    return base + (below.amax(-1) if below.shape[-1] else 0)
+
+
 def main():
     wall0 = time.perf_counter()
+    # the deepest max_depth the checks give the descents (all by default)
+    deepest = (int(sys.argv[sys.argv.index("--depth-cap") + 1])
+               if "--depth-cap" in sys.argv else None)
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; none is available")
@@ -304,6 +407,7 @@ def main():
     from repro_torch.configs import rpf_iss595 as isscfg
     from repro_torch.configs import rpf_mnist784 as cfgmod
     from repro_torch.core.distances import METRICS
+    from repro_torch.core.forest import ForestConfig
     from repro_torch.core.knn import exact_knn
     from repro_torch.core.pipeline import candidates
     from repro_torch.core.quantized import quantize_db
@@ -329,8 +433,10 @@ def main():
     card = torch.cuda.get_device_name(0)
     counters = (LAUNCHES, REF_CALLS)
     launches_by_path = {}
-    # sha256 of kernels D's and C's outputs by case (phase ``digests``)
-    digests = {"matmul_topk": {}, "fused_gather_topk_int8": {}}
+    # sha256 of kernels A's, B's, C's and D's outputs by case (phase
+    # ``digests``)
+    digests = {"forest_traverse": {}, "fused_gather_topk": {},
+               "matmul_topk": {}, "fused_gather_topk_int8": {}}
 
     # ---- card ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -521,6 +627,33 @@ def main():
     emit({"phase": "compare", "path": "iss595", "cases": len(iss_res),
           "max_abs_err": worst_iss})
 
+    # ---- a forest built with max_depth = 160 (the kernels once refused
+    # max_depth > 128): Index.search on the card against mode="ref" -------
+    spec_deep = IndexSpec(backend="rpf", forest=ForestConfig(
+        n_trees=8, capacity=12, split_ratio=0.3,
+        max_depth=min(160, deepest or 160)), seed=0)
+
+    def drive_deep():
+        idx = build_index(db_np[:6000], spec_deep, device=dev)
+        return idx, {p: idx.search(queries[:64], SearchParams(k=K,
+                                                               n_probes=p))
+                     for p in PROBES}
+
+    (deep_index, deep_res), launches, ref_calls = counted(torch, counters,
+                                                          drive_deep)
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk"),
+            "deep")
+    worst_deep = 0.0
+    for p, got in deep_res.items():
+        want = deep_index.search(queries[:64], SearchParams(
+            k=K + 1, n_probes=p, mode="ref"))
+        worst_deep = max(worst_deep, compare_topk(torch, got, want, K))
+        check_scores(torch, METRICS["l2"], queries[:64], db, got)
+    emit({"phase": "compare", "path": "deep",
+          "max_depth": spec_deep.forest.max_depth,
+          "cases": len(deep_res), "max_abs_err": worst_deep,
+          "launches": launches, "ref_calls": ref_calls})
+
     # ---- kernels against their plain versions ------------------------------
     def bitwise(got, want):
         return (torch.equal(got[0].view(torch.int32),
@@ -529,21 +662,71 @@ def main():
 
     feat = forest.proj_idx[..., 0]
     thresh, child = forest.thresh, forest.child_base
-    trav_cases = 0
-    for p in (1, 3, 4):
+    descent_cases = []
+
+    def check_descent(tag, f, th, cb, q, depth_cap, p):
+        """Kernel A bitwise its plain version; its leaves' digest kept."""
+        got = forest_traverse_hbm(f, th, cb, q, depth_cap, p)
+        want = ref.forest_traverse_ref(f, th, cb, q, depth_cap, p)
+        check(torch.equal(got, want), f"kernel A differs from its plain "
+              f"version: {tag}")
+        digests["forest_traverse"][tag] = digest((got,))
+        descent_cases.append(tag)
+        return got
+
+    for p in (1, 3, 4, 8):
         for b in BATCHES:
-            got = forest_traverse_hbm(feat, thresh, child, queries[:b],
-                                      rc.max_depth, p)
-            want = ref.forest_traverse_ref(feat, thresh, child, queries[:b],
-                                           rc.max_depth, p)
-            check(torch.equal(got, want), f"descent differs at P={p} B={b}")
-            trav_cases += 1
+            check_descent(f"mnist784 P={p} B={b}", feat, thresh, child,
+                          queries[:b], rc.max_depth, p)
     # more probes than levels: the tail slots must be -1 in both
-    got = forest_traverse_hbm(feat, thresh, child, queries[:7], 3, 6)
-    want = ref.forest_traverse_ref(feat, thresh, child, queries[:7], 3, 6)
-    check(torch.equal(got, want) and bool((got[..., 4:] == -1).all()),
-          "descent differs with P > max_depth + 1")
-    trav_cases += 1
+    got = check_descent("mnist784 max_depth=3 P=6", feat, thresh, child,
+                        queries[:7], 3, 6)
+    check(bool((got[..., 4:] == -1).all()), "descent slots past "
+          "max_depth + 1 are not -1")
+    # ties (a grid of 1/8), NaN / +-inf query elements, P past one round
+    # of alternates (8 and 9)
+    for name, (f, th, cb, q) in descent_edge_inputs(torch, feat, thresh,
+                                                    child, queries).items():
+        for p in (1, 3, 4, 8, 9):
+            check_descent(f"mnist784 {name} P={p}", f, th, cb, q,
+                          rc.max_depth, p)
+    iss_feat = iss_index.forest.proj_idx[..., 0]
+    for p in PROBES:
+        check_descent(f"iss595 P={p}", iss_feat, iss_index.forest.thresh,
+                      iss_index.forest.child_base, iss_q, iss_rc.max_depth, p)
+    # chains 150 and 200 levels deep (the kernels once refused max_depth >
+    # 128), at their full depth and cut 7 levels short; kernel F on each
+    # tree too, bitwise A
+    deep_cases = []
+    cgen = torch.Generator(device=dev).manual_seed(3)
+    for depth_ in [d_ for d_ in (150, 200) if d_ <= (deepest or d_)]:
+        cf, cth, ccb, cq = chain_forest(torch, depth_, 64, 8, 1024, cgen, dev)
+        for depth_cap in (depth_, depth_ - 7):
+            for p in (1, 4, 9):
+                got = check_descent(f"chain {depth_} max_depth={depth_cap} "
+                                    f"P={p}", cf, cth, ccb, cq, depth_cap, p)
+                got = got.view(cf.shape[0], cq.shape[0], -1)
+                for t in range(cf.shape[0]):
+                    got_f = forest_traverse(cf[t], cth[t], ccb[t], cq,
+                                            depth_cap, p)
+                    check(torch.equal(got_f.view(cq.shape[0], -1), got[t]),
+                          f"kernel F differs from A on chain {depth_} tree "
+                          f"{t} P={p}")
+                deep_cases.append([depth_, depth_cap, p])
+    # kernel F on edge queries (NaN / +-inf, ties) on four MNIST trees
+    used0 = forest.n_nodes.tolist()
+    for name, (f, th, cb, q) in descent_edge_inputs(torch, feat, thresh,
+                                                    child, queries).items():
+        for p in (1, 4, 9):
+            a_out = forest_traverse_hbm(f, th, cb, q, rc.max_depth, p)
+            for t in range(4):
+                tr = (f[t, :used0[t]], th[t, :used0[t]], cb[t, :used0[t]])
+                got_f = forest_traverse(*tr, q, rc.max_depth, p)
+                check(torch.equal(got_f, ref.forest_traverse_tree_ref(
+                    *tr, q, rc.max_depth, p)), f"kernel F differs from its "
+                    f"plain version: {name} tree {t} P={p}")
+                check(torch.equal(got_f, a_out[t]), f"kernel F differs "
+                      f"from A: {name} tree {t} P={p}")
 
     def dedup_cand(frst, q, cfg, p):
         ids, mask = candidates(frst, q, cfg.max_depth, cfg.leaf_pad, p)
@@ -555,15 +738,33 @@ def main():
     holes = cand[1].clone()
     holes[torch.rand(holes.shape, generator=gen, device=dev) < 0.3] = -1
     fused_cases, fused_err = 0, 0.0
+    # (M <= 128 takes B's small-M path: the last four)
     shapes = [(cand[1], K), (cand[4], K), (cand[1][:1], 1), (cand[1][:7], K),
-              (holes[:7], K), (holes, 1), (cand[4][:7, :40], 128)]
+              (holes[:7], K), (holes, 1), (cand[4][:7, :40], 128),
+              (holes[:, :40], K), (cand[1][:, :64], K), (cand[1][:, :128], K)]
     for metric in ("l2", "dot", "chi2", "cosine"):
         for ids, k in shapes:
             q = queries[:ids.shape[0]].contiguous()
             ids = ids.contiguous()
             got = fused_gather_topk(q, ids, db, k, metric)
+            digests["fused_gather_topk"][
+                f"{metric} {ids.shape[0]}x{ids.shape[1]} k={k} "
+                f"case {fused_cases % len(shapes)}"] = digest(got)
             want = in_slabs(torch, lambda lo, hi: ref.fused_gather_topk_ref(
                 q[lo:hi], ids[lo:hi], db, k + 1, metric), q.shape[0])
+            fused_err = max(fused_err, compare_topk(torch, got, want, k))
+            fused_cases += 1
+    # the small-M path with one element a lane (d = 595: no float4 rows)
+    for metric in ("l2", "dot", "cosine"):
+        for ids, k in ((iss_cand[:7, :50], K), (iss_cand[:, :64], 128)):
+            q = iss_q[:ids.shape[0]].contiguous()
+            ids = ids.contiguous()
+            got = fused_gather_topk(q, ids, iss_db, k, metric)
+            digests["fused_gather_topk"][
+                f"{metric} iss595 {ids.shape[0]}x{ids.shape[1]} k={k}"] = \
+                digest(got)
+            want = in_slabs(torch, lambda lo, hi: ref.fused_gather_topk_ref(
+                q[lo:hi], ids[lo:hi], iss_db, k + 1, metric), q.shape[0])
             fused_err = max(fused_err, compare_topk(torch, got, want, k))
             fused_cases += 1
 
@@ -736,8 +937,9 @@ def main():
                                                     K + 1), K)
         fused_err = max(fused_err, g_wide)
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "descent_cases": trav_cases,
-          "descent_bitwise": True, "fused_cases": fused_cases,
+    emit({"phase": "kernels", "descent_cases": len(descent_cases),
+          "descent_bitwise": True, "deep_chains_a_and_f": deep_cases,
+          "fused_cases": fused_cases,
           "fused_max_abs_err": fused_err, "int8_cases": int8_cases,
           "int8_max_abs_err": int8_err, "scan_cases": scan_cases,
           "matmul_max_abs_err": d_err, "chi2_max_abs_err": e_err,
@@ -824,6 +1026,8 @@ def main():
         for name, fn in (
                 ("fused_gather_topk", lambda kk: fused_gather_topk(
                     sq, ids1, db, kk)),
+                ("fused_gather_topk M=64", lambda kk: fused_gather_topk(
+                    sq, ids1[:, :64].contiguous(), db, kk)),
                 ("fused_gather_topk_int8", lambda kk: fused_gather_topk_int8(
                     sq, ids4, qdb.q, qdb.scale, 4 * kk)),
                 ("matmul_topk", lambda kk: matmul_topk(sq, db, kk)),
@@ -832,9 +1036,11 @@ def main():
                     queries[:64], c64, ids64, mask64, kk)),
                 ("fused_scan", lambda kk: fused_scan(sq, db, kk))):
             big, small = fn(k), fn(K)
-            if name in digests:
-                digests[name][f"anyk {k}"] = digest(big)
-                digests[name][f"anyk {K} beside {k}"] = digest(small)
+            kernel, _, tag = name.partition(" ")
+            if kernel in digests:
+                tag = f" {tag}" if tag else ""
+                digests[kernel][f"anyk {k}{tag}"] = digest(big)
+                digests[kernel][f"anyk {K} beside {k}{tag}"] = digest(small)
             w = small[0].shape[1]
             check(bitwise((big[0][:, :w].contiguous(),
                            big[1][:, :w].contiguous()), small),
@@ -1329,52 +1535,77 @@ def main():
           "search": breakdown(lsh_index, queries, SearchParams(k=K))})
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
-    # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output
-    l_idx = torch.arange(rc.n_trees, device=dev)[:, None, None]
+    # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.
+    # Its chains: one thread's P descents from the root (chain_levels_max,
+    # how the kernel before this design walked them), and the least chain
+    # these inputs need (least_chain_levels_max: the primary's levels plus
+    # the deepest alternate's below its flip)
     trav_rows = []
-    for p in PROBES:
-        leaves = forest_traverse_hbm(feat, thresh, child, queries,
-                                     rc.max_depth, p).view(rc.n_trees, -1, p)
-        ok = leaves >= 0
-        levels = torch.where(ok, depth[l_idx, leaves.clamp_min(0).long()], 0)
-        n_desc = int(ok.sum())
-        nbytes = 16 * int(levels.sum()) + 4 * n_desc + 4 * leaves.numel()
-        trav_rows.append({
-            "n_probes": p,
-            "ms": time_ms(torch, lambda: forest_traverse_hbm(
-                feat, thresh, child, queries, rc.max_depth, p), 25, flush),
-            "plain_ms": time_ms(torch, lambda: ref.forest_traverse_ref(
-                feat, thresh, child, queries, rc.max_depth, p), 5, flush),
-            "bound_ms": nbytes / rate * 1e3, "bytes": nbytes,
-            "mean_levels": float(levels[ok].float().mean()),
-            "max_levels": int(levels.max()),
-            # one thread's chain of dependent levels: its P descents
-            "chain_levels_max": int(levels.sum(-1).max())})
-    # the latency of one level: a single thread descends a synthetic chain
-    # of 127 nodes scattered through 3 x 64 MB arrays (thresh +inf sends
-    # every step left, to child_base); the time over a 1-level descent,
-    # per extra level, is the dependent-load latency the descent pays
-    n_chain, hops = 1 << 24, 127
+    for cell, (f, th, cb, q, depth_cap) in (
+            ("rpf_mnist784", (feat, thresh, child, queries, rc.max_depth)),
+            ("rpf_iss595", (iss_feat, iss_index.forest.thresh,
+                            iss_index.forest.child_base, iss_q,
+                            iss_rc.max_depth))):
+        dep = depth if cell == "rpf_mnist784" else node_depths(
+            torch, cb, depth_cap)
+        l_idx = torch.arange(f.shape[0], device=dev)[:, None, None]
+        for p in PROBES:
+            leaves = forest_traverse_hbm(f, th, cb, q, depth_cap, p).view(
+                f.shape[0], -1, p)
+            ok = leaves >= 0
+            levels = torch.where(ok, dep[l_idx, leaves.clamp_min(0).long()],
+                                 0)
+            n_desc = int(ok.sum())
+            nbytes = 16 * int(levels.sum()) + 4 * n_desc + 4 * leaves.numel()
+            trav_rows.append({
+                "cell": cell, "n_probes": p, "trees": f.shape[0],
+                "queries": q.shape[0],
+                "ms": time_ms(torch, lambda: forest_traverse_hbm(
+                    f, th, cb, q, depth_cap, p), 25, flush),
+                "plain_ms": time_ms(torch, lambda: ref.forest_traverse_ref(
+                    f, th, cb, q, depth_cap, p), 5, flush),
+                "bound_ms": nbytes / rate * 1e3, "bytes": nbytes,
+                "mean_levels": float(levels[ok].float().mean()),
+                "max_levels": int(levels.max()),
+                "chain_levels_max": int(levels.sum(-1).max()),
+                "least_chain_levels_max": int(least_chain_levels(
+                    torch, cb, dep, leaves).max())})
+    # the latency of one dependent load, the yardstick of the chain bounds:
+    # one thread chases 4,096 hops scattered through a 64 MB array
+    # (csrc/pointer_chase.cu, a kernel apart from A, so that the yardstick
+    # does not move with A); the time over a 1-hop chase, per extra hop.
+    # Flushed: from device memory; warm: from L2, what a level's node
+    # record costs at best once the forest is cached.  A level of A needs
+    # at least one such load, so its chain bounds are levels x the warm
+    # latency.  The chase is long (~1 ms) because without a flush the start
+    # event fires before the kernel is enqueued: the host's launch gap,
+    # tens of microseconds that vary, must not weigh on the difference
+    n_chain, hops = 1 << 24, 4096
     path = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
                       1 + torch.randperm(n_chain - 1, generator=gen,
                                          device=dev)[:hops]])
-    c_feat = torch.zeros((1, n_chain), dtype=torch.int32, device=dev)
-    c_thresh = torch.full((1, n_chain), float("inf"), device=dev)
-    c_child = torch.full((1, n_chain), -1, dtype=torch.int32, device=dev)
-    c_child[0, path[:-1]] = path[1:].int()
-    q_chain = torch.zeros((1, 1), device=dev)
-    t_long, t_short = (time_ms(torch, lambda n=n: forest_traverse_hbm(
-        c_feat, c_thresh, c_child, q_chain, n), 25, flush) for n in (hops, 1))
+    chase_next = torch.zeros(n_chain, dtype=torch.int32, device=dev)
+    chase_next[path[:-1]] = path[1:].int()
+    chase_out = torch.empty(1, dtype=torch.int32, device=dev)
+    chase = build.library("pointer_chase").pointer_chase
+
+    def run_chase(n):
+        build.check_launch(chase(chase_next.data_ptr(), n,
+                                 chase_out.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream),
+                           "pointer_chase")
+
+    t_long, t_short = (time_ms(torch, lambda n=n: run_chase(n), 25, flush)
+                       for n in (hops, 1))
     per_level_us = (t_long - t_short) * 1e3 / (hops - 1)
-    # the same chain warm, from L2 (no flush): what a level costs at best
-    # once the forest is cached.  Kernel A's chain bound: its longest
-    # thread's levels, over all P descents, at that latency
-    t_long, t_short = (time_ms(torch, lambda n=n: forest_traverse_hbm(
-        c_feat, c_thresh, c_child, q_chain, n), 25) for n in (hops, 1))
+    t_long, t_short = (time_ms(torch, lambda n=n: run_chase(n), 25)
+                       for n in (hops, 1))
     per_level_l2_us = (t_long - t_short) * 1e3 / (hops - 1)
     for row in trav_rows:
         row["chain_bound_ms"] = row["chain_levels_max"] * per_level_l2_us / 1e3
-    del c_feat, c_thresh, c_child
+        row["least_chain_bound_ms"] = (row["least_chain_levels_max"]
+                                       * per_level_l2_us / 1e3)
+    del chase_next
 
     # fused rerank: each valid slot reads its row once; ids, q, output once
     # (l2: 3 operations per element; chi2: CHI2_ISSUES issues per term)
@@ -1410,6 +1641,9 @@ def main():
         nbytes = valid * d * 4 + b * m * 4 + q.numel() * 4 + b * K * 8
         ops_ = ((3 * valid * d, FP32_FLOPS) if metric == "l2" else
                 (CHI2_ISSUES * valid * d, FP32_FLOPS / 2))
+        if "stage 2" in cell:
+            digests["fused_gather_topk"][f"timed {cell} {b}x{m} k={K}"] = \
+                digest(fused_gather_topk(q, ids, rows, K, metric))
         fused_rows.append({
             "cell": cell, "metric": metric, "m": m, "valid_slots": valid,
             "ms": time_ms(torch, lambda: fused_gather_topk(
@@ -1556,6 +1790,8 @@ def main():
          "latency_per_level_us": per_level_us,
          "latency_floor_ms": per_level_us * t1["max_levels"] / 1e3,
          "latency_per_level_l2_us": per_level_l2_us,
+         "least_chain_levels_max": t1["least_chain_levels_max"],
+         "least_chain_bound_ms": t1["least_chain_bound_ms"],
          "chain_bound_ms": t1["chain_bound_ms"],
          "shapes": trav_rows},
         {"name": "fused_gather_topk", "route": "cuda",

@@ -34,6 +34,7 @@ __device__ __forceinline__ void copy_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
+template <int NA>
 __global__ void __launch_bounds__(THREADS)
     forest_traverse_smem_kernel(const int* __restrict__ feat,
                                 const float* __restrict__ thresh,
@@ -56,8 +57,8 @@ __global__ void __launch_bounds__(THREADS)
 
   const int b = blockIdx.x * THREADS + threadIdx.x;
   if (b >= B) return;
-  descend_one(s_feat, s_thresh, s_child, q + (size_t)b * d, out + (size_t)b * P,
-              max_depth, P);
+  descend_one<NA>(SharedTree{s_feat, s_thresh, s_child}, q + (size_t)b * d,
+                  out + (size_t)b * P, max_depth, P);
 }
 
 extern "C" int forest_traverse_smem(const void* feat, const void* thresh,
@@ -65,8 +66,7 @@ extern "C" int forest_traverse_smem(const void* feat, const void* thresh,
                                     void* out, int n_nodes, int B, int d,
                                     int max_depth, int P, void* stream) {
   if (B == 0) return (int)cudaSuccess;
-  if (n_nodes < 1 || max_depth > DESCENT_MAX_DEPTH || P < 1)
-    return (int)cudaErrorInvalidValue;
+  if (n_nodes < 1 || P < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)n_nodes * 12;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -74,14 +74,19 @@ extern "C" int forest_traverse_smem(const void* feat, const void* thresh,
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(forest_traverse_smem_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  forest_traverse_smem_kernel<<<(B + THREADS - 1) / THREADS, THREADS, smem,
-                                (cudaStream_t)stream>>>(
-      (const int*)feat, (const float*)thresh, (const int*)child_base, (const float*)q,
-      (int*)out, n_nodes, B, d, max_depth, P);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define LAUNCH(NA)                                                                       \
+  do {                                                                                   \
+    if (smem > 48 * 1024) {                                                              \
+      err = cudaFuncSetAttribute(forest_traverse_smem_kernel<NA>,                        \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem); \
+      if (err != cudaSuccess) return (int)err;                                           \
+    }                                                                                    \
+    forest_traverse_smem_kernel<NA><<<(B + THREADS - 1) / THREADS, THREADS, smem, s>>>(  \
+        (const int*)feat, (const float*)thresh, (const int*)child_base, (const float*)q, \
+        (int*)out, n_nodes, B, d, max_depth, P);                                         \
+  } while (0)
+  DESCENT_DISPATCH(P, LAUNCH)
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

@@ -55,18 +55,81 @@
 #define WARPS (THREADS / 32)
 #define TILE 256
 #define KMAX 128
+// Small M (stage 2 of rpf+int8 scores M = k' = 40 slots a query): warp w
+// scoring slots 32w .. 32w + 31 leaves 6 of 8 warps idle, and a warp's
+// slots go one after another.  At M <= SPREAD_MAX_M a tile's valid slots
+// are listed first and dealt over all the warps, each warp taking GROUP of
+// them at once with their rows' loads in flight together (l2, dot and
+// cosine; chi2 keeps its staged rows).  Above it the one-slot-a-lane
+// layout runs as before; both give a pair the same bits.
+// The crossover, GROUP and the blocks an SM are chip_split.py's measurements
+// on an H100 (PERF.md).
+#define SPREAD_MAX_M 128
+#define GROUP 2
+#define SPREAD_BLOCKS 8
 
 __device__ __forceinline__ bool lex_less(float da, int sa, float db, int sb) {
   return da < db || (da == db && sa < sb);
 }
 
+// The small-M scores of the tile at base: the valid slots listed, then warp
+// w takes listed positions w, w + WARPS, ... GROUP at a time; tile_d[slot -
+// base] gets each valid slot's score and +inf the rest.  Ends before the
+// caller's barrier, so tile_d is read only after it.
 template <int METRIC, bool VEC4>
-__global__ void __launch_bounds__(THREADS)
-    fused_gather_topk_kernel(const float* __restrict__ q, const int* __restrict__ ids,
-                             const float* __restrict__ db, const float* __restrict__ lo_d,
-                             const int* __restrict__ lo_s, float* __restrict__ out_d,
-                             int* __restrict__ out_i, int* __restrict__ last_s, int M, int N,
-                             int d, int k) {
+__device__ __forceinline__ void listed_scores(const float* qs, const int* ids_b,
+                                              const float* __restrict__ db, int base, int M,
+                                              int N, int d, float q_norm, float* tile_d) {
+  __shared__ int list_slot[TILE], list_id[TILE];
+  __shared__ int n_valid[WARPS];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int id = base + tid < M ? ids_b[base + tid] : -1;
+  const unsigned ok = __ballot_sync(0xffffffffu, id >= 0);
+  if (lane == 0) n_valid[warp] = __popc(ok);
+  tile_d[tid] = INFINITY;
+  __syncthreads();
+  int off = 0, nv = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    off += w < warp ? n_valid[w] : 0;
+    nv += n_valid[w];
+  }
+  if (id >= 0) {
+    const int p = off + __popc(ok & ((1u << lane) - 1u));
+    list_slot[p] = tid;
+    list_id[p] = id;
+  }
+  __syncthreads();
+  for (int p0 = warp; p0 < nv; p0 += WARPS * GROUP) {
+    const int n = min(GROUP, (nv - p0 + WARPS - 1) / WARPS);  // positions of this round
+    const float* rows[GROUP];
+#pragma unroll
+    for (int u = 0; u < GROUP; ++u)
+      rows[u] = db + (size_t)min(list_id[u < n ? p0 + u * WARPS : p0], N - 1) * d;
+    float a[GROUP], c[GROUP];
+#pragma unroll
+    for (int u = 0; u < GROUP; ++u) a[u] = c[u] = 0.f;
+    group_partials<METRIC, VEC4, GROUP>(qs, rows, n, d, lane, a, c);
+#pragma unroll
+    for (int u = 0; u < GROUP; ++u) {
+      const float s = warp_sum(a[u]);
+      const float cc = METRIC == COSINE ? warp_sum(c[u]) : 0.f;
+      if (lane == u && u < n) tile_d[list_slot[p0 + u * WARPS]] = finish<METRIC>(s, cc, q_norm);
+    }
+  }
+}
+
+// The kernel's body; SPREAD picks the small-M scores
+template <int METRIC, bool VEC4, bool SPREAD>
+__device__ __forceinline__ void gather_topk(const float* __restrict__ q,
+                                            const int* __restrict__ ids,
+                                            const float* __restrict__ db,
+                                            const float* __restrict__ lo_d,
+                                            const int* __restrict__ lo_s,
+                                            float* __restrict__ out_d, int* __restrict__ out_i,
+                                            int* __restrict__ last_s, int M, int N, int d,
+                                            int k) {
   // dynamic: the query, chi2's own terms, then each warp's ring
   extern __shared__ __align__(16) float smem[];
   __shared__ float tile_d[TILE];
@@ -109,18 +172,22 @@ __global__ void __launch_bounds__(THREADS)
   const int low_s = lower ? lo_s[b] : 0;
 
   for (int base = 0; base < M; base += TILE) {
-    // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
-    const int first = base + warp * 32;
-    const int my_id = first + lane < M ? ids_b[first + lane] : -1;
-    // an empty slot: no load, scores +inf
-    const unsigned ok = __ballot_sync(0xffffffffu, my_id >= 0);
-    auto row_of = [&](int i) {
-      return db + (size_t)min(__shfl_sync(0xffffffffu, my_id, i), N - 1) * d;
-    };
-    if constexpr (METRIC == CHI2)
-      tile_d[tid] = staged_scores<METRIC, VEC4>(qs, tt, ring, d, lane, ok, row_of);
-    else
-      tile_d[tid] = direct_scores<METRIC, VEC4>(qs, d, lane, ok, row_of, q_norm);
+    if constexpr (SPREAD) {
+      listed_scores<METRIC, VEC4>(qs, ids_b, db, base, M, N, d, q_norm, tile_d);
+    } else {
+      // ---- score the tile: warp w owns slots base + 32w .. base + 32w + 31
+      const int first = base + warp * 32;
+      const int my_id = first + lane < M ? ids_b[first + lane] : -1;
+      // an empty slot: no load, scores +inf
+      const unsigned ok = __ballot_sync(0xffffffffu, my_id >= 0);
+      auto row_of = [&](int i) {
+        return db + (size_t)min(__shfl_sync(0xffffffffu, my_id, i), N - 1) * d;
+      };
+      if constexpr (METRIC == CHI2)
+        tile_d[tid] = staged_scores<METRIC, VEC4>(qs, tt, ring, d, lane, ok, row_of);
+      else
+        tile_d[tid] = direct_scores<METRIC, VEC4>(qs, d, lane, ok, row_of, q_norm);
+    }
     __syncthreads();
 
     // ---- keep only finite scores that beat the running k-th best
@@ -179,11 +246,31 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+#define KERNEL_ARGS                                                                        \
+  const float *__restrict__ q, const int *__restrict__ ids, const float *__restrict__ db,  \
+      const float *__restrict__ lo_d, const int *__restrict__ lo_s,                        \
+      float *__restrict__ out_d, int *__restrict__ out_i, int *__restrict__ last_s, int M, \
+      int N, int d, int k
+
 template <int METRIC, bool VEC4>
+__global__ void __launch_bounds__(THREADS) fused_gather_topk_kernel(KERNEL_ARGS) {
+  gather_topk<METRIC, VEC4, false>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, M, N, d, k);
+}
+
+// the small-M shape, compiled for SPREAD_BLOCKS blocks an SM: at 8 (32
+// registers a thread) a batch of 1,024 queries runs in one wave
+template <int METRIC, bool VEC4>
+__global__ void __launch_bounds__(THREADS, SPREAD_BLOCKS)
+    fused_gather_topk_small_kernel(KERNEL_ARGS) {
+  gather_topk<METRIC, VEC4, true>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, M, N, d, k);
+}
+
+template <int METRIC, bool VEC4, bool SPREAD>
 static int launch(const float* q, const int* ids, const float* db, const float* lo_d,
                   const int* lo_s, float* out_d, int* out_i, int* last_s, int B, int M, int N,
                   int d, int k, cudaStream_t stream) {
-  auto kernel = fused_gather_topk_kernel<METRIC, VEC4>;
+  auto kernel = SPREAD ? fused_gather_topk_small_kernel<METRIC, VEC4>
+                       : fused_gather_topk_kernel<METRIC, VEC4>;
   // the query; under chi2 its own terms and the rows' rings too
   const size_t smem = METRIC == CHI2 ? staged_smem_bytes(d, true, WARPS)
                                      : sizeof(float) * (size_t)((d + 3) & ~3);
@@ -201,9 +288,19 @@ template <int METRIC>
 static int launch_metric(const float* q, const int* ids, const float* db, const float* lo_d,
                          const int* lo_s, float* out_d, int* out_i, int* last_s, int B, int M,
                          int N, int d, int k, cudaStream_t s) {
+  constexpr bool direct = METRIC != CHI2;
+  if (direct && M <= SPREAD_MAX_M) {
+    if (d % 4 == 0)
+      return launch<METRIC, true, direct>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, B, M,
+                                          N, d, k, s);
+    return launch<METRIC, false, direct>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, B, M,
+                                         N, d, k, s);
+  }
   if (d % 4 == 0)
-    return launch<METRIC, true>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, B, M, N, d, k, s);
-  return launch<METRIC, false>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, B, M, N, d, k, s);
+    return launch<METRIC, true, false>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, B, M, N,
+                                       d, k, s);
+  return launch<METRIC, false, false>(q, ids, db, lo_d, lo_s, out_d, out_i, last_s, B, M, N,
+                                      d, k, s);
 }
 
 // lo_d / lo_s (B,) may be null (no lower key); last_s (B,) may be null

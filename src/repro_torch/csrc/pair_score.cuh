@@ -72,6 +72,42 @@ __device__ __forceinline__ void lane_partial(const float* qs, const float* row, 
   }
 }
 
+// lane_partial of G pairs (qs, rows[u]) at once, for u < n (the others add
+// nothing and load nothing): each pair's terms in lane_partial's order, the
+// rows' loads of a step issued before any of their terms
+template <int METRIC, bool VEC4, int G>
+__device__ __forceinline__ void group_partials(const float* qs, const float* const (&rows)[G],
+                                               int n, int d, int lane, float (&a)[G],
+                                               float (&c)[G]) {
+  if (VEC4) {
+    const float4* q4 = reinterpret_cast<const float4*>(qs);
+    for (int g = lane; g < (d >> 2); g += 32) {
+      float4 y[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u)
+        y[u] = u < n ? __ldg(reinterpret_cast<const float4*>(rows[u]) + g)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 x = q4[g];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        accum<METRIC>(x.x, y[u].x, a[u], c[u]);
+        accum<METRIC>(x.y, y[u].y, a[u], c[u]);
+        accum<METRIC>(x.z, y[u].z, a[u], c[u]);
+        accum<METRIC>(x.w, y[u].w, a[u], c[u]);
+      }
+    }
+  } else {
+    for (int e = lane; e < d; e += 32) {
+      float y[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u) y[u] = u < n ? __ldg(rows[u] + e) : 0.f;
+      const float x = qs[e];
+#pragma unroll
+      for (int u = 0; u < G; ++u) accum<METRIC>(x, y[u], a[u], c[u]);
+    }
+  }
+}
+
 // lane class `lane`'s partial of a row's sum(y * y), as accum<COSINE> adds it
 template <bool VEC4>
 __device__ __forceinline__ float row_sq_partial(const float* row, int d, int lane) {

@@ -42,6 +42,8 @@ SIGNATURES = {
     "embedding_bag": ("embedding_bag",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "chi2_topk": ("chi2_topk", [_P] * 10 + [_I] * 5 + [_P]),
+    # the yardstick of kernel A's chain bound (chip_smoke.py), no TPU kernel
+    "pointer_chase": ("pointer_chase", [_P, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

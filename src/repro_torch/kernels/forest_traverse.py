@@ -19,7 +19,6 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import LAUNCHES, check_tensor
-from repro_torch.kernels.forest_traverse_hbm import MAX_DEPTH_CAP
 from repro_torch.kernels.ref import forest_traverse_tree_ref
 
 # feat int32 + thresh f32 + child_base int32
@@ -59,9 +58,6 @@ def forest_traverse(feat: torch.Tensor, thresh: torch.Tensor,
         raise ValueError(f"a tree of {n_nodes} nodes does not fit shared "
                          f"memory (cap {cap} nodes on this card); use "
                          f"kernel='hbm'")
-    if max_depth > MAX_DEPTH_CAP:
-        raise ValueError(f"max_depth {max_depth} exceeds the kernel's margin "
-                         f"array of {MAX_DEPTH_CAP} levels")
     if n_probes < 1:
         raise ValueError(f"n_probes must be >= 1, got {n_probes}")
     b, d = queries.shape

@@ -4,7 +4,8 @@
 a CUDA device and runs its plain version (``ref.forest_traverse_ref``) for
 tensors on the CPU.  The TPU kernel kept the trees in HBM to lift the SMEM
 node cap; on the GPU every tree lives in device memory anyway, so one kernel
-serves every tree size and the name only keeps the pair findable.
+serves every tree size, and any ``max_depth`` and ``n_probes``, and the name
+only keeps the pair findable.
 """
 from __future__ import annotations
 
@@ -14,8 +15,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import LAUNCHES, check_tensor
 from repro_torch.kernels.ref import forest_traverse_ref
 
-# size of the per-thread margin array in csrc/forest_traverse.cu
-MAX_DEPTH_CAP = 128
+# the grid's y limit: a block takes one tree (csrc/forest_traverse.cu)
 _MAX_GRID_Y = 65535
 
 
@@ -40,9 +40,6 @@ def forest_traverse_hbm(feat: torch.Tensor, thresh: torch.Tensor,
     if not (feat.shape == thresh.shape == child_base.shape):
         raise ValueError(f"tree arrays disagree: {tuple(feat.shape)}, "
                          f"{tuple(thresh.shape)}, {tuple(child_base.shape)}")
-    if max_depth > MAX_DEPTH_CAP:
-        raise ValueError(f"max_depth {max_depth} exceeds the kernel's margin "
-                         f"array of {MAX_DEPTH_CAP} levels")
     if n_probes < 1:
         raise ValueError(f"n_probes must be >= 1, got {n_probes}")
     n_trees, n_nodes = feat.shape

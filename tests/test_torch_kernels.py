@@ -187,18 +187,83 @@ def _jax_traverse(feat, thresh, child, q, max_depth, n_probes):
     return np.stack(out)
 
 
-@pytest.mark.parametrize("n_probes", [1, 3, 9])
-def test_forest_traverse_ref_matches_reference(n_probes):
-    """n_probes 9 > max_depth + 1: the tail slots are -1 in both."""
-    max_depth = 6
-    feat, thresh, child = _random_trees(3, 127, 10, seed=n_probes)
-    q = np.random.default_rng(n_probes).normal(size=(13, 10)
-                                               ).astype(np.float32)
+def _chain_trees(n_trees, depth, d, seed):
+    """K = 1 chains ``depth`` levels deep: the path node at depth t has
+    children 2t + 1 and 2t + 2, a leaf and the next path node, and the
+    test sends most queries in [0, 1) along the chain (its threshold
+    outside [0, 1) on all but about one in 10 of the top 20 levels, so
+    queries leave near the root or reach the bottom)."""
+    rng = np.random.default_rng(seed)
+    n = 2 * depth + 1
+    feat = np.zeros((n_trees, n), np.int32)
+    thresh = np.zeros((n_trees, n), np.float32)
+    child = -np.ones((n_trees, n), np.int32)
+    for tr in range(n_trees):
+        node = 0
+        for t in range(depth):
+            right = rng.uniform() < 0.5
+            u = rng.uniform()
+            feat[tr, node] = rng.integers(d)
+            thresh[tr, node] = (u if t < 20 and rng.uniform() < 0.1
+                                else (-u if right else 1 + u))
+            child[tr, node] = 2 * t + 1
+            node = 2 * t + 1 + int(right)
+    return (torch.from_numpy(feat), torch.from_numpy(thresh),
+            torch.from_numpy(child))
+
+
+def _descent_case(case, seed):
+    """(feat, thresh, child, q, max_depth) of a descent test case: random
+    trees; thresholds and queries on one grid of 1/2 (tied margins, and
+    q[feat] == thresh); NaN, +inf and -inf query elements; or chains
+    150 levels deep."""
+    rng = np.random.default_rng(seed)
+    if case == "chain150":
+        feat, thresh, child = _chain_trees(2, 150, 10, seed)
+        return feat, thresh, child, rng.uniform(size=(13, 10)).astype(
+            np.float32), 150
+    feat, thresh, child = _random_trees(3, 127, 10, seed=seed)
+    q = rng.normal(size=(13, 10)).astype(np.float32)
+    if case == "ties":
+        thresh = torch.round(thresh * 2) / 2
+        q = rng.integers(-3, 4, size=q.shape).astype(np.float32) / 2
+    elif case == "nan_inf":
+        q[0] = np.nan
+        q[1, ::3] = np.inf
+        q[2, 1::3] = -np.inf
+        q[3, ::4] = np.nan
+    return feat, thresh, child, q, 6
+
+
+@pytest.mark.parametrize("case,n_probes", [
+    pytest.param("random", 1, id="1"), pytest.param("random", 3, id="3"),
+    pytest.param("random", 9, id="9"), ("random", 8),
+    ("ties", 1), ("ties", 3), ("ties", 4), ("ties", 9),
+    ("nan_inf", 1), ("nan_inf", 3), ("nan_inf", 4), ("nan_inf", 9),
+    ("chain150", 1), ("chain150", 4)])
+def test_forest_traverse_ref_matches_reference(case, n_probes):
+    """The plain version (the yardstick kernels A and F are held to on the
+    card) equals the reference on random trees (n_probes 9 > max_depth + 1:
+    the tail slots are -1 in both), tied margins, NaN / +-inf query
+    elements and trees deeper than 128 levels."""
+    feat, thresh, child, q, max_depth = _descent_case(case, n_probes)
     got = tref.forest_traverse_ref(feat, thresh, child, torch.from_numpy(q),
                                    max_depth, n_probes)
     want = _jax_traverse(feat, thresh, child, q, max_depth, n_probes)
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n_probes", [1, 4])
+def test_forest_traverse_hbm_takes_any_depth_on_cpu_tensors(n_probes):
+    """max_depth 150 (past the 128 levels the kernel once refused): the
+    wrapper runs the plain version on CPU tensors and does not raise."""
+    feat, thresh, child, q, _ = _descent_case("chain150", 2)
+    q = torch.from_numpy(q)
+    got = forest_traverse_hbm(feat, thresh, child, q, 150, n_probes)
+    want = tref.forest_traverse_ref(feat, thresh, child, q, 150, n_probes)
+    assert torch.equal(got, want)
+    assert int(got.view(2, 13, -1)[..., 0].max()) > 2 * 128
 
 
 def test_forest_traverse_pallas_interpret_case():
