@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Nine paths, each driven through the entry points a user calls, with every
+Ten paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -44,6 +44,25 @@ version may have run):
   lsh      ``build_index`` on ``lsh-cascade`` over MNIST-784 at the paper's
            radii and ``Index.search`` for 1, 7 and 1024 queries (the host
            buckets, then kernel B)
+  mutate   the mutable index on MNIST-784 at ``rebuild_frac`` 0.1, on
+           ``rpf``, ``rpf+int8`` (expand 4) and ``bruteforce``: 7,000
+           ``add``s (the first 6,000 seal into segment 1, which builds its
+           own 80-tree forest; 1,000 stay in the delta buffer), ``delete``
+           of every 30th base id, every 12th id of segment 1 and every 2nd
+           delta id, 300 ``upsert``s of live base ids; ``stats()`` must
+           read 2 segments, 64,000 live, 3,300 tombstones, 800 in the
+           delta, 3,000 deleted.  Then 1024 queries at k = 10 (``rpf`` at
+           1 and 4 probes, ``rpf+int8`` at 4): kernels A, B and the scan,
+           and C on ``rpf+int8`` (the scan alone on ``bruteforce``).  Its
+           checks: ``bruteforce`` bitwise a fresh build over
+           ``live_points()``; ``rpf`` and ``rpf+int8`` against the plain
+           path by the compare rule, no deleted id, no id twice in a row,
+           every id scoring its current row (an upserted id its new one);
+           ``save`` then ``load_index`` of the ``rpf`` index answering bit
+           for bit the same; a search while ``compact(block=False)``
+           rebuilds answering as the old view, bit for bit; the compacted
+           index bitwise a fresh ``build_index`` of its live rows with the
+           same seed, and two such builds giving equal forests
 
 Phases, each printing one JSON line:
 
@@ -93,9 +112,14 @@ Phases, each printing one JSON line:
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
            fall below 1 probe (a superset of candidates, reranked exactly);
            ``lsh-cascade`` beside ``rpf`` at k = 10: ms per batch, recall,
-           mean candidates, build seconds
+           mean candidates, build seconds; the mutated and the compacted
+           ``rpf`` index beside the pristine one at 1 and 4 probes (ms and
+           recall against exact k-NN over the live points; the seal's and
+           the compaction's seconds), the mutated ``rpf+int8`` and
+           ``bruteforce`` beside theirs
   profile  device time per search by kernel and the device's idle share
-           (``torch.profiler`` over 5 searches of 1024 queries)
+           (``torch.profiler`` over 5 searches of 1024 queries), the
+           mutated and compacted ``rpf`` index at 4 probes too
   digests  the sha256 (16 hex digits) of kernels A's, B's, C's and D's
            outputs on every case above, at the timed shapes (B's stage-2
            shortlists) and in the any-k rounds, to compare two builds' runs
@@ -117,6 +141,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -399,6 +424,7 @@ def main():
     # the deepest max_depth the checks give the descents (all by default)
     deepest = (int(sys.argv[sys.argv.index("--depth-cap") + 1])
                if "--depth-cap" in sys.argv else None)
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; none is available")
@@ -407,13 +433,15 @@ def main():
     from repro_torch.configs import rpf_iss595 as isscfg
     from repro_torch.configs import rpf_mnist784 as cfgmod
     from repro_torch.core.distances import METRICS
-    from repro_torch.core.forest import ForestConfig
+    from repro_torch.core.forest import Forest, ForestConfig
     from repro_torch.core.knn import exact_knn
     from repro_torch.core.pipeline import candidates
     from repro_torch.core.quantized import quantize_db
-    from repro_torch.core.search import mask_duplicates, recall_at_k
+    from repro_torch.core.search import (mask_duplicates, merge_topk_pairs,
+                                         recall_at_k)
     from repro_torch.data.synthetic import iss_like, mnist_like
-    from repro_torch.index import IndexSpec, SearchParams, build_index
+    from repro_torch.index import (IndexSpec, SearchParams, build_index,
+                                   load_index)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.chi2_topk import chi2_topk
     from repro_torch.kernels.common import LAUNCHES, REF_CALLS
@@ -1432,6 +1460,235 @@ def main():
     emit({"phase": "compare", "path": "lsh", "cases": len(lsh_res),
           "max_abs_err": worst_lsh})
 
+    # ---- path: mutate (segments, delta buffer, tombstones) -----------------
+    # the paper's MNIST-784 index at rebuild_frac 0.1 on rpf, rpf+int8 and
+    # bruteforce, each through the same churn: 7,000 adds of
+    # mnist_like(seed=1) rows (the first 6,000 seal into segment 1, which
+    # builds its own forest; 1,000 stay in the delta), deletes of every
+    # 30th base id, every 12th id of segment 1 and every 2nd delta id, and
+    # 300 upserts of live base ids
+    # (at N = 60,000: 6,000 sealed, 1,000 in the delta, 2,000 + 500 + 500
+    # deleted, 300 upserted; stats n_segments 2, n_live 64,000,
+    # n_tombstones 3,300, n_delta 800, n_deleted_total 3,000)
+    n_base = cfgmod.N_DB
+    n_seal = n_base // 10               # the seal threshold at 0.1
+    n_added = n_seal + n_seal // 6
+    churn_np = mnist_like(n_added + n_base // 200, n_test=1, d=cfgmod.DIM,
+                          seed=1)[0]
+    dead_base = list(range(0, n_base, 30))
+    dead_seg1 = list(range(n_base, n_base + n_seal, 12))
+    dead_delta = list(range(n_base + n_seal, n_base + n_added, 2))
+    dead_ids = dead_base + dead_seg1 + dead_delta
+    upserted = list(range(15, n_base, 200))        # never a multiple of 30
+    want_stats = {
+        "n_segments": 2, "n_live": n_base + n_added - len(dead_ids),
+        "n_tombstones": len(dead_ids) + len(upserted),
+        "n_delta": n_added - n_seal - len(dead_delta) + len(upserted),
+        "n_deleted_total": len(dead_ids)}
+    mut_specs = {name: IndexSpec(backend=name, forest=cfgmod.CONFIG, seed=0,
+                                 rebuild_frac=0.1)
+                 for name in ("rpf", "rpf+int8", "bruteforce")}
+    mut_params = {"rpf": [SearchParams(k=K, n_probes=p) for p in PROBES],
+                  "rpf+int8": [SearchParams(k=K, n_probes=4,
+                                            expand=EXPAND)],
+                  "bruteforce": [SearchParams(k=K)]}
+    mut_kernels = {"rpf": ("forest_traverse", "fused_gather_topk",
+                           "fused_scan"),
+                   "rpf+int8": ("forest_traverse", "fused_gather_topk_int8",
+                                "fused_gather_topk", "fused_scan"),
+                   "bruteforce": ("fused_scan",)}
+
+    def drive_mutate(name):
+        t0 = time.perf_counter()
+        idx = build_index(db_np, mut_specs[name], device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for j in range(n_added):
+            if j == n_seal - 1:    # this add seals the delta into segment 1
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            idx.add(churn_np[j])
+            if j == n_seal - 1:
+                torch.cuda.synchronize()
+                seal_s = time.perf_counter() - t0
+        idx.delete(dead_ids)
+        for j, gid in enumerate(upserted):
+            idx.upsert(gid, churn_np[n_added + j])
+        return idx, build_s, seal_s, [idx.search(queries, p)
+                                      for p in mut_params[name]]
+
+    mut, seal_s_by = {}, {}
+    for name in mut_specs:
+        (idx, build_s, seal_s, res), launches, ref_calls = counted(
+            torch, counters, lambda name=name: drive_mutate(name))
+        require(launches, ref_calls, mut_kernels[name], f"mutate {name}")
+        launches_by_path[f"mutate {name}"] = launches
+        st = idx.stats()
+        check(all(st[key] == v for key, v in want_stats.items()),
+              f"mutate {name}: stats {st}, want {want_stats}")
+        mut[name] = (idx, res, idx.snapshot())
+        seal_s_by[name] = seal_s
+        emit({"phase": "mutate", "backend": name, "stats": st,
+              "index_build_s": build_s, "seal_build_s": seal_s,
+              "searches": len(res), "launches": launches,
+              "ref_calls": ref_calls})
+
+    # every returned id is live, once a row, and scores its current row
+    gids_live, rows_live = mut["rpf"][0].live_points()
+    for name in ("rpf+int8", "bruteforce"):
+        g, r = mut[name][0].live_points()
+        check(np.array_equal(g, gids_live) and np.array_equal(r, rows_live),
+              f"mutate {name}: live points differ from rpf's")
+    gl = torch.from_numpy(gids_live).to(dev)
+    rows_live_dev = torch.from_numpy(rows_live).to(dev)
+    by_gid = torch.zeros((n_base + n_added, db.shape[1]), device=dev)
+    by_gid[gl.long()] = rows_live_dev
+    dead = torch.zeros(n_base + n_added, dtype=torch.bool, device=dev)
+    dead[dead_ids] = True
+
+    def integrity(got, name):
+        gi = got[1]
+        ok = gi >= 0
+        check(not bool(dead[gi.clamp_min(0).long()][ok].any()),
+              f"a deleted id surfaced on mutate {name}")
+        s = gi.sort(dim=1)[0]
+        check(not bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any()),
+              f"an id appears twice in a row on mutate {name}")
+        check_scores(torch, METRICS["l2"], queries, by_gid, got)
+
+    def as_gids(out):
+        d, i = out
+        return d, torch.where(i >= 0, gl[i.clamp_min(0).long()], -1)
+
+    def int8_plain_mut(view, q, p, k=K):
+        """``int8_plain`` over each sealed segment (its tombstones masked
+        before dedup), the delta's plain scan, merged to k + 1."""
+        parts = []
+        for seg in view.segments:
+            eng = seg.engine
+            rcs = eng.spec.forest.resolved(eng.db.shape[0])
+            ids, mask = candidates(eng.forest, q, rcs.max_depth,
+                                   rcs.leaf_pad, p, mode="ref")
+            if seg.n_dead:
+                mask = mask & seg.live_dev[ids.long()]
+            ids = torch.where(mask_duplicates(ids, mask), ids, -1).int()
+            kp = min(EXPAND * k, ids.shape[1])
+            _, short = ref.fused_gather_topk_int8_ref(q, ids, eng.qdb.q,
+                                                      eng.qdb.scale, kp)
+            d, i = ref.fused_gather_topk_ref(q, short, eng.qdb.fp, k + 1)
+            parts.append((d, torch.where(
+                i >= 0, seg.gids_dev[i.clamp_min(0).long()], -1)))
+        parts.append(view.delta.search(q, SearchParams(k=k + 1, mode="ref")))
+        return merge_topk_pairs(torch.cat([d for d, _ in parts], dim=1),
+                                torch.cat([i for _, i in parts], dim=1),
+                                k + 1)
+
+    # 1. bruteforce: bitwise a fresh build over the live points
+    fresh_b = build_index(rows_live, IndexSpec(backend="bruteforce"),
+                          device=dev)
+    mb_res = mut["bruteforce"][1][0]
+    check(bitwise(mb_res, as_gids(fresh_b.search(queries,
+                                                 SearchParams(k=K)))),
+          "mutated bruteforce differs from a fresh build of its live rows")
+    integrity(mb_res, "bruteforce")
+    del fresh_b
+    # 2. rpf at P = 1 and 4, rpf+int8 at P = 4: against the plain path
+    m_rpf, rpf_res, rpf_view = mut["rpf"]
+    mut_err, from_part = {}, {}
+    for p, got in zip(PROBES, rpf_res):
+        want = rpf_view.search(queries, SearchParams(k=K + 1, n_probes=p,
+                                                     mode="ref"))
+        mut_err[f"rpf P={p}"] = compare_topk(torch, got, want, K)
+        integrity(got, "rpf")
+        gi = got[1][got[1] >= 0]
+        from_part[f"rpf P={p}"] = {
+            "base": int((gi < n_base).sum()),
+            "segment 1": int(((gi >= n_base) & (gi < n_base + n_seal)).sum()),
+            "delta": int((gi >= n_base + n_seal).sum()),
+            "upserted": int(torch.isin(gi, torch.tensor(
+                upserted, device=dev)).sum())}
+    m_int8, (int8_got,), int8_view = mut["rpf+int8"]
+    want = in_slabs(torch, lambda lo, hi: int8_plain_mut(
+        int8_view, queries[lo:hi], 4), queries.shape[0])
+    mut_err["rpf+int8 P=4"] = compare_topk(torch, int8_got, want, K)
+    integrity(int8_got, "rpf+int8")
+    emit({"phase": "compare", "path": "mutate", "max_abs_err": mut_err,
+          "bruteforce_bitwise_fresh": True, "result_ids_from": from_part})
+
+    # 5. save -> load_index on the card: the same answers bit for bit (the
+    # save seals the delta into segment 2 first)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_rpf.save(tmp)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_index(tmp, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for p in PROBES:
+        params = SearchParams(k=K, n_probes=p)
+        check(bitwise(loaded.search(queries, params),
+                      m_rpf.search(queries, params)),
+              f"save / load_index changed the answers at P = {p}")
+    saved_st = m_rpf.stats()
+    check(all(loaded.stats()[key] == saved_st[key] for key in (
+        "n_segments", "n_live", "n_tombstones", "n_delta")),
+        f"loaded stats {loaded.stats()} differ from {saved_st}")
+    del loaded
+    # 4. a search while compact(block=False) rebuilds answers from the old
+    # view, bit for bit; then the thread publishes the new view
+    params4 = SearchParams(k=K, n_probes=4)
+    old = m_rpf.search(queries, params4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compaction = m_rpf.compact(block=False)
+    during = m_rpf.search(queries, params4)
+    torch.cuda.synchronize()
+    in_progress = m_rpf.stats()["compaction_in_progress"]
+    compaction.join()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    check(in_progress, "the compaction ended before the search issued "
+          "during it returned")
+    check(bitwise(during, old), "a search during compaction differs from "
+          "the old view's answer")
+    st = m_rpf.stats()
+    check(st["n_segments"] == 1 and st["n_tombstones"] == 0
+          and st["n_live"] == want_stats["n_live"]
+          and st["n_compactions"] == 1,
+          f"compacted stats {st}")
+    # 3. the compacted rpf index is bitwise a fresh build of its live rows
+    # with the original seed, and two such builds give equal forests
+    gids_c, rows_c = m_rpf.live_points()
+    check(np.array_equal(gids_c, gids_live)
+          and np.array_equal(rows_c, rows_live),
+          "compaction changed the live points or their order")
+    fresh = [build_index(rows_live, mut_specs["rpf"], device=dev)
+             for _ in range(2)]
+    for name, a, b, c in zip(Forest._fields, m_rpf.forest, fresh[0].forest,
+                             fresh[1].forest):
+        check(torch.equal(b, c), f"two builds over the same rows differ in "
+              f"forest.{name}")
+        check(torch.equal(a, b), f"the compacted forest differs from a "
+              f"fresh build in forest.{name}")
+    compact_res = {}
+    for p in PROBES:
+        params = SearchParams(k=K, n_probes=p)
+        compact_res[p] = m_rpf.search(queries, params)
+        check(bitwise(compact_res[p], as_gids(fresh[0].search(queries,
+                                                                params))),
+              f"the compacted index differs from a fresh build at P = {p}")
+        integrity(compact_res[p], "rpf compacted")
+    del fresh
+    emit({"phase": "mutate", "backend": "rpf", "stats_compacted": st,
+          "save_s": save_s, "load_s": load_s, "compact_s": compact_s,
+          "compact_note": "compact(block=False) to join, one search "
+                          "during it", "checks": [
+              "bruteforce bitwise fresh", "rpf / rpf+int8 vs plain",
+              "save-load bitwise", "search during compaction bitwise old",
+              "compacted bitwise fresh", "two builds equal"]})
+
     # ---- timing, recall ----------------------------------------------------
     _, true_i = exact_knn(queries, db, K)
     cells = {}
@@ -1494,6 +1751,42 @@ def main():
               p: dict(cells["rpf"][p], index_build_s=index_build_s)
               for p in PROBES}})
 
+    # the mutate cell: the mutated rpf index (its view before the save
+    # sealed the delta) and the compacted one between two timings of the
+    # pristine index; recall against exact k-NN over the live points
+    _, true_live = exact_knn(queries, rows_live_dev, K)
+    true_live = gl[true_live.long()]
+    mut_cell = {}
+    for p in PROBES:
+        params = SearchParams(k=K, n_probes=p)
+        row = {}
+        for tag, idx in (("pristine", index), ("mutated", rpf_view),
+                         ("compacted", m_rpf), ("pristine_again", index)):
+            row[f"{tag}_ms"] = time_ms(torch, lambda: idx.search(queries,
+                                                                 params), 25)
+        for tag, ids in (("mutated", rpf_res[PROBES.index(p)][1]),
+                         ("compacted", compact_res[p][1])):
+            row[f"{tag}_recall_at_1"] = recall_at_k(ids[:, :1],
+                                                    true_live[:, :1])
+            row[f"{tag}_recall_at_10"] = recall_at_k(ids, true_live)
+        mut_cell[p] = row
+    p8, pb = SearchParams(k=K, n_probes=4, expand=EXPAND), SearchParams(k=K)
+    emit({"phase": "timing", "cell": "rpf_mnist784 / mutate",
+          "batch": cfgmod.QUERY_BATCH, "k": K, "card": smi,
+          "stats": want_stats, "index_build_s_pristine": index_build_s,
+          "seal_build_s": seal_s_by, "compact_s": compact_s,
+          "n_probes": mut_cell, "others": {
+              "rpf+int8 P=4": {
+                  "pristine_ms": time_ms(torch, lambda: index8.search(
+                      queries, p8), 25),
+                  "mutated_ms": time_ms(torch, lambda: int8_view.search(
+                      queries, p8), 25)},
+              "bruteforce": {
+                  "pristine_ms": time_ms(torch, lambda: bidx.search(
+                      queries, pb), 10, warm=1),
+                  "mutated_ms": time_ms(torch, lambda: mut["bruteforce"][
+                      2].search(queries, pb), 10, warm=1)}}})
+
     # ---- where the time goes: device time by kernel over 5 searches -------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1533,6 +1826,11 @@ def main():
     emit({"phase": "profile", "cell": "rpf_mnist784 / lsh-cascade",
           "batch": queries.shape[0], "card": smi,
           "search": breakdown(lsh_index, queries, SearchParams(k=K))})
+    for cell, idx in (("rpf_mnist784 / mutate, mutated", rpf_view),
+                      ("rpf_mnist784 / mutate, compacted", m_rpf)):
+        emit({"phase": "profile", "cell": cell, "batch": queries.shape[0],
+              "card": smi, "n_probes": {4: breakdown(
+                  idx, queries, SearchParams(k=K, n_probes=4))}})
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

@@ -7,7 +7,9 @@ or ``rpf+int8`` index without building one, so both packages can query the
 same forest.  For ``rpf+int8`` it also takes the reference's ``q8`` and
 ``scale`` and checks that the port's ``quantize_db`` gives the same bits.
 An ``lsh-cascade`` index's state is its rows alone: its tables are rebuilt
-from (rows, spec), as the reference's ``from_state`` rebuilds them.
+from (rows, spec), as the reference's ``from_state`` rebuilds them.  A
+whole index, segments, tombstones and all, crosses through a saved
+manifest instead (``index.load_index``).
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ def index_from_numpy(db, forest_arrays, spec: IndexSpec,
     if spec.backend == "lsh-cascade":
         if forest_arrays is not None:
             raise ValueError("an lsh-cascade index holds no forest")
-        return cls(cls.engine_cls(spec, rows.contiguous()), spec)
+        return cls._from_engine(cls.engine_cls(spec, rows.contiguous()),
+                                spec)
     forest = forest_from_numpy(forest_arrays, dev)
     if forest.perm.shape[1] != rows.shape[0]:
         raise ValueError(f"forest indexes {forest.perm.shape[1]} rows, db "
@@ -65,7 +68,8 @@ def index_from_numpy(db, forest_arrays, spec: IndexSpec,
     if forest.n_trees != spec.forest.n_trees:
         raise ValueError(f"forest has {forest.n_trees} trees, spec says "
                          f"{spec.forest.n_trees}")
-    index = cls(cls.engine_cls(spec, rows.contiguous(), forest=forest), spec)
+    index = cls._from_engine(
+        cls.engine_cls(spec, rows.contiguous(), forest=forest), spec)
     if spec.backend == "rpf+int8":
         if q8 is None or scale is None:
             raise ValueError("an rpf+int8 index needs its q8 and scale")

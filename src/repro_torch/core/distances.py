@@ -95,6 +95,12 @@ PAIRWISE: dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = {
 }
 
 
+def pairwise(q: torch.Tensor, db: torch.Tensor, metric: str = "l2"
+             ) -> torch.Tensor:
+    """(Q, d) x (N, d) -> (Q, N) distances under ``metric``."""
+    return PAIRWISE[metric](q, db)
+
+
 def normalize_rows(x: torch.Tensor) -> torch.Tensor:
     """Unit-normalize rows (the paper normalizes MNIST vectors to norm 1)."""
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + EPS)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -101,15 +102,31 @@ Draws = Callable[[int], tuple]
 def generator_draws(generator: torch.Generator, cfg: ForestConfig, d: int,
                     device: torch.device) -> Draws:
     """Per-level draws from ``generator`` (on ``device``): candidate
-    coordinates, coefficients and threshold quantiles for every slot."""
-    shape = (cfg.n_trees, cfg.max_nodes, cfg.n_proj)
+    coordinates, coefficients and threshold quantiles for every slot.
 
-    def draws(level: int):
+    Levels are drawn in order from the generator's stream; a level asked
+    for again (a chunked build asks once per chunk) is drawn again from
+    the generator state it started at, so it repeats bit for bit."""
+    shape = (cfg.n_trees, cfg.max_nodes, cfg.n_proj)
+    starts = [generator.get_state()]      # the state each level starts at
+
+    def draw():
         ci = torch.randint(0, d, shape, generator=generator, device=device,
                            dtype=torch.int32)
         cc = torch.rand(shape, generator=generator, device=device)
         u = torch.rand(shape[:2], generator=generator, device=device)
         return ci, cc, u
+
+    def draws(level: int):
+        while len(starts) <= level:
+            generator.set_state(starts[-1])
+            draw()
+            starts.append(generator.get_state())
+        generator.set_state(starts[level])
+        out = draw()
+        if len(starts) == level + 1:
+            starts.append(generator.get_state())
+        return out
 
     return draws
 
@@ -142,23 +159,44 @@ def _project(x: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor
 def build_forest(x: torch.Tensor, cfg: ForestConfig, *,
                  generator: torch.Generator | None = None,
                  draws: Draws | None = None,
-                 device: str | torch.device | None = None) -> Forest:
+                 device: str | torch.device | None = None,
+                 tree_chunk: int = 0) -> Forest:
     """Build the L-tree forest over the points ``x`` (N, d) float32.
 
     ``draws(level) -> (cand_idx (L, m, K), cand_coef (L, m, K), u (L, m))``
     supplies each level's randomness (tensors or numpy arrays); without it
     the levels are drawn from ``generator`` (seed 0 when None).  Runs on
     ``device`` (the GPU unless ``device="cpu"``).
+
+    ``tree_chunk`` > 0 builds the trees in chunks of that many, each chunk
+    from its own slice of every level's draws: the trees are independent,
+    so the forest is bitwise the unchunked one, with the builder's (L, N)
+    state cut to the chunk's width.
     """
     dev = resolve_device(device)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
     n, d = x.shape
     cfg = cfg.resolved(n)
-    L, m, kp, cap = cfg.n_trees, cfg.max_nodes, cfg.n_proj, cfg.capacity
     if draws is None:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         draws = generator_draws(generator, cfg, d, dev)
+    if not 0 < tree_chunk < cfg.n_trees:
+        return _build_trees(x, cfg, draws)
+    chunks = []
+    for lo in range(0, cfg.n_trees, tree_chunk):
+        hi = min(lo + tree_chunk, cfg.n_trees)
+        chunks.append(_build_trees(
+            x, cfg._replace(n_trees=hi - lo),
+            lambda level, lo=lo, hi=hi: tuple(a[lo:hi] for a in draws(level))))
+    return Forest(*(torch.cat(parts) for parts in zip(*chunks)))
+
+
+def _build_trees(x: torch.Tensor, cfg: ForestConfig, draws: Draws) -> Forest:
+    """The batched level loop over one resolved config's trees."""
+    dev = x.device
+    n, _ = x.shape
+    L, m, kp, cap = cfg.n_trees, cfg.max_nodes, cfg.n_proj, cfg.capacity
 
     node_ids = torch.arange(m, device=dev)[None, :]
     tree_off = torch.arange(L, device=dev)[:, None] * m
@@ -332,3 +370,59 @@ def gather_candidates(forest: Forest, leaves: torch.Tensor, pad: int
     """Padded union of the leaf point sets: leaves (L, B) -> (B, L*pad) ids,
     (B, L*pad) mask.  The single-probe case of ``gather_candidates_multi``."""
     return gather_candidates_multi(forest, leaves[..., None], pad)
+
+
+def query_forest(forest: Forest, queries: torch.Tensor, db: torch.Tensor,
+                 k: int, cfg: ForestConfig, metric: str = "l2",
+                 dedup: bool = True, mode: str = "auto", chunk: int = 0,
+                 device: str | torch.device | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """End-to-end query: traverse -> dedup -> rerank -> top-k, through
+    ``core.pipeline.fused_query``.  Returns (dists (B, k), ids (B, k));
+    invalid slots: +inf / -1."""
+    from repro_torch.core import pipeline  # local import: pipeline imports us
+
+    return pipeline.fused_query(forest, queries, db, k, cfg, metric=metric,
+                                dedup=dedup, mode=mode, chunk=chunk,
+                                device=device)
+
+
+# ---------------------------------------------------------------------------
+# structural statistics (paper section 3.4), on the host
+# ---------------------------------------------------------------------------
+
+
+def forest_stats(forest: Forest, cfg: ForestConfig, n_points: int) -> dict:
+    """Per-tree node, leaf, occupancy and depth statistics, their means
+    over the trees, and the per-tree list under ``per_tree``."""
+    cfg = cfg.resolved(n_points)
+    child = forest.child_base.cpu().numpy()
+    count = forest.leaf_count.cpu().numpy()
+    n_nodes = forest.n_nodes.cpu().numpy()
+    stats = []
+    for t in range(child.shape[0]):
+        alive = np.arange(child.shape[1]) < n_nodes[t]
+        leaf = (child[t] < 0) & alive
+        occ = count[t][leaf & (count[t] > 0)]
+        # depth per node via a forward sweep (children follow parents)
+        depth = np.full(child.shape[1], -1, np.int32)
+        depth[0] = 0
+        for i in range(int(n_nodes[t])):
+            if child[t, i] >= 0:
+                depth[child[t, i]] = depth[i] + 1
+                depth[child[t, i] + 1] = depth[i] + 1
+        leaf_depths = depth[leaf & (count[t] > 0)]
+        stats.append(dict(
+            n_nodes=int(n_nodes[t]),
+            n_leaves=int(leaf.sum()),
+            occ_mean=float(occ.mean()) if occ.size else 0.0,
+            occ_max=int(occ.max()) if occ.size else 0,
+            overflow_points=(int(occ[occ > cfg.capacity].sum())
+                             if occ.size else 0),
+            depth_mean=(float(leaf_depths.mean()) if leaf_depths.size
+                        else 0.0),
+            depth_max=int(leaf_depths.max()) if leaf_depths.size else 0,
+        ))
+    agg = {key: float(np.mean([s[key] for s in stats])) for key in stats[0]}
+    agg["per_tree"] = stats
+    return agg

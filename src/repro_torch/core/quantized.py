@@ -66,3 +66,18 @@ def staged_query_quantized(forest: Forest, queries: torch.Tensor,
     cand_ids, mask = gather_candidates(forest, leaves, cfg.leaf_pad)
     return staged_rerank_quantized(queries, cand_ids, mask, qdb, k=k,
                                    expand=expand)
+
+
+def query_forest_quantized(forest: Forest, queries: torch.Tensor,
+                           qdb: QuantizedDB, k: int, cfg: ForestConfig,
+                           expand: int = 4, metric: str = "l2",
+                           mode: str = "auto",
+                           device: str | torch.device | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Deprecated shim: use ``pipeline.fused_query(forest, q, qdb, ...)``
+    or ``build_index(backend="rpf+int8")``.  Runs the fused pipeline with
+    the int8 shortlist source."""
+    from repro_torch.core import pipeline  # local import: pipeline imports us
+
+    return pipeline.fused_query(forest, queries, qdb, k, cfg, metric=metric,
+                                mode=mode, expand=expand, device=device)

@@ -1,11 +1,15 @@
-"""Deterministic synthetic stand-ins for the paper's two datasets (numpy
-copies of ``repro/data/synthetic.py``'s ``mnist_like`` and ``iss_like``;
-the port keeps its own copies so it never imports the reference).  The same
-seed gives the same arrays as the reference.
+"""Deterministic synthetic stand-ins for the paper's two datasets, and
+clustered test rows (numpy copies of ``repro/data/synthetic.py``'s
+``mnist_like``, ``iss_like`` and ``clustered_gaussians``; the port keeps
+its own copies so it never imports the reference).  The same seed gives
+the same arrays as the reference.
 
 ``mnist_like``: 10 class manifolds in 784-D, each an affine map of a low
 intrinsic dimension gaussian latent through smooth blob bases on the 28x28
 grid, clipped to [0, 1] and unit-normalized as the paper normalizes MNIST.
+
+``clustered_gaussians``: generic clustered rows for tests and retrieval
+corpora.
 
 ``iss_like``: non-negative 595-D histograms, one sparse prototype per
 vehicle model with multiplicative gamma noise, each row summing to 1 (the
@@ -72,3 +76,15 @@ def iss_like(n: int = 250_000, n_test: int = 2_000, d: int = 595,
     db_labels = rng.integers(0, n_models, size=n)
     q_labels = rng.integers(0, n_models, size=n_test)
     return sample(n, db_labels), db_labels, sample(n_test, q_labels), q_labels
+
+
+def clustered_gaussians(n: int, d: int, n_clusters: int = 64,
+                        cluster_std: float = 0.15, seed: int = 0
+                        ) -> np.ndarray:
+    """(n, d) float32 rows around ``n_clusters`` standard-normal centres."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, d)).astype(np.float32)
+    labels = rng.integers(0, n_clusters, size=n)
+    x = centers[labels] + cluster_std * rng.normal(size=(n, d)).astype(
+        np.float32)
+    return x.astype(np.float32)

@@ -7,15 +7,21 @@
   bruteforce   exact scan through the same fused rerank (the recall oracle)
 
 An engine is the immutable search core of one segment: it owns the rows
-(and the forest) and answers ``search(q, params)``.  ``params.n_probes``
-widens the descent to the most marginal leaves; ``params.n_trees`` queries
-a prefix of the forest (the trees are independent, so any prefix is a
-valid smaller forest); ``params.expand`` sets the int8 shortlist width;
-``params.min_candidates`` sets where the LSH cascade stops.  Knobs that do
-not apply to a backend are inert.
+(and the forest) on the device, answers ``search(q, params, valid=None)``
+with segment-local ids (``valid`` an optional (n,) bool tombstone mask,
+applied before any kernel scores a row), and saves as a tree of arrays
+(``state_tree`` / ``state_skeleton`` / ``from_state``) under the
+reference's leaf names.  One engine exists per sealed segment; each
+``Index`` subclass adds its ``stats()`` keys and its format-1 checkpoint
+tree.  ``params.n_probes`` widens the descent to the most marginal leaves;
+``params.n_trees`` queries a prefix of the forest (the trees are
+independent, so any prefix is a valid smaller forest); ``params.expand``
+sets the int8 shortlist width; ``params.min_candidates`` sets where the LSH
+cascade stops.  Knobs that do not apply to a backend are inert.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.forest import Forest, build_forest
@@ -25,6 +31,12 @@ from repro_torch.core.quantized import QuantizedDB, quantize_db
 from repro_torch.index.api import Index, register_backend
 from repro_torch.index.params import IndexSpec, SearchParams
 from repro_torch.index.segments import brute_force_topk
+
+_FOREST_SKELETON = Forest(*[0] * len(Forest._fields))
+
+
+def _rows_from_state(state: dict, device: torch.device) -> torch.Tensor:
+    return torch.tensor(np.asarray(state["db"], np.float32), device=device)
 
 
 class RPFEngine:
@@ -37,7 +49,7 @@ class RPFEngine:
         self.db = rows
         self.forest = forest if forest is not None else build_forest(
             rows, spec.forest, generator=generator, draws=draws,
-            device=rows.device)
+            device=rows.device, tree_chunk=spec.tree_chunk)
 
     def _rerank_source(self) -> torch.Tensor | QuantizedDB:
         return self.db
@@ -55,6 +67,19 @@ class RPFEngine:
                            mode=params.mode, chunk=params.chunk,
                            expand=params.expand, n_probes=params.n_probes,
                            valid=valid, device=self.db.device)
+
+    def state_tree(self) -> dict:
+        return {"db": self.db, "forest": self.forest}
+
+    @classmethod
+    def state_skeleton(cls, spec: IndexSpec) -> dict:
+        return {"db": 0, "forest": _FOREST_SKELETON}
+
+    @classmethod
+    def from_state(cls, spec: IndexSpec, state: dict, device: torch.device):
+        forest = Forest(*(torch.tensor(np.asarray(a), device=device)
+                          for a in state["forest"]))
+        return cls(spec, _rows_from_state(state, device), forest=forest)
 
 
 class RPFInt8Engine(RPFEngine):
@@ -106,6 +131,18 @@ class LSHEngine:
                             params.k, metric=params.metric, mode=params.mode,
                             dedup=False, chunk=params.chunk, valid=valid)
 
+    def state_tree(self) -> dict:
+        return {"db": self.db}
+
+    @classmethod
+    def state_skeleton(cls, spec: IndexSpec) -> dict:
+        return {"db": 0}
+
+    @classmethod
+    def from_state(cls, spec: IndexSpec, state: dict, device: torch.device):
+        # the tables are a function of (rows, spec): rebuilt
+        return cls(spec, _rows_from_state(state, device))
+
 
 class BruteForceEngine:
     """Exact scan routed through the shared fused rerank stage; the
@@ -121,6 +158,17 @@ class BruteForceEngine:
                ) -> tuple[torch.Tensor, torch.Tensor]:
         return brute_force_topk(q, self.db, params, valid=valid)
 
+    def state_tree(self) -> dict:
+        return {"db": self.db}
+
+    @classmethod
+    def state_skeleton(cls, spec: IndexSpec) -> dict:
+        return {"db": 0}
+
+    @classmethod
+    def from_state(cls, spec: IndexSpec, state: dict, device: torch.device):
+        return cls(spec, _rows_from_state(state, device))
+
 
 @register_backend("rpf")
 class RPFIndex(Index):
@@ -130,7 +178,15 @@ class RPFIndex(Index):
 
     @property
     def forest(self) -> Forest:
-        return self.engine.forest
+        """The first segment's forest."""
+        return self._primary_engine.forest
+
+    def _extra_stats(self) -> dict:
+        return {"n_trees": self.spec.forest.n_trees}
+
+    @classmethod
+    def _v1_skeleton(cls, spec: IndexSpec) -> dict:
+        return {"db": 0, "key_data": 0, "forest": _FOREST_SKELETON}
 
 
 @register_backend("rpf+int8")
@@ -141,7 +197,7 @@ class RPFInt8Index(RPFIndex):
 
     @property
     def qdb(self) -> QuantizedDB:
-        return self.engine.qdb
+        return self._primary_engine.qdb
 
 
 @register_backend("lsh-cascade")
@@ -152,11 +208,19 @@ class LSHCascadeIndex(Index):
 
     @property
     def cascade(self) -> CascadedLSH:
-        return self.engine.cascade
+        return self._primary_engine.cascade
 
     @property
     def last_mean_candidates(self) -> float:
-        return self.engine.last_mean_candidates
+        return self._primary_engine.last_mean_candidates
+
+    def _extra_stats(self) -> dict:
+        return {"n_levels": len(self.spec.lsh_radii),
+                "n_tables": self.spec.lsh_tables}
+
+    @classmethod
+    def _v1_skeleton(cls, spec: IndexSpec) -> dict:
+        return {"db": 0, "key_data": 0}
 
 
 @register_backend("bruteforce")
@@ -164,3 +228,7 @@ class BruteForceIndex(Index):
     """Exact scan via the shared fused rerank stage (the recall oracle)."""
 
     engine_cls = BruteForceEngine
+
+    @classmethod
+    def _v1_skeleton(cls, spec: IndexSpec) -> dict:
+        return {"db": 0, "key_data": 0}
