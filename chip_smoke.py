@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Ten paths, each driven through the entry points a user calls, with every
+Eleven paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -62,7 +62,25 @@ version may have run):
            for bit the same; a search while ``compact(block=False)``
            rebuilds answering as the old view, bit for bit; the compacted
            index bitwise a fresh ``build_index`` of its live rows with the
-           same seed, and two such builds giving equal forests
+           same seed, and two such builds giving equal forests.  Every row
+           carries metadata columns (``label``: its class; ``bucket``: id %
+           100; ``ts``: an int64 timestamp near 1.7e18) through the adds
+           and upserts: a filtered search in the brute regime
+           (``Eq("bucket", 7)``) is bitwise a ``bruteforce`` build over the
+           live matching rows on all three backends, and ``save`` /
+           ``load_index`` keeps filtered answers bit for bit
+  knobs    the MNIST-784 index on ``rpf`` and ``rpf+int8`` (expand 4) with
+           the same columns, 1024 queries at k = 10: ``probe_schedule`` 4
+           at tol 0 bitwise the fixed P = 4 search; a 100-query subset at P
+           = 2 bitwise the same rows of the full batch; ``adaptive_wave``
+           10 at tol 0 using all 80 trees and (``rpf``) equal to the fixed
+           search by the compare rule; ``Eq("bucket", 7)`` (600 rows, the
+           brute regime) bitwise a ``bruteforce`` build over its rows;
+           ``Eq("label", 3)`` (~10%, widened to P = 4) returning only
+           matching rows, none twice; ``expand=0`` bitwise ``expand=4`` on
+           ``rpf`` and a ``ValueError`` on ``rpf+int8``; ``tune`` on 512
+           queries choosing the same params twice (kernels A, B, the scan
+           and C)
 
 Phases, each printing one JSON line:
 
@@ -116,10 +134,14 @@ Phases, each printing one JSON line:
            ``rpf`` index beside the pristine one at 1 and 4 probes (ms and
            recall against exact k-NN over the live points; the seal's and
            the compaction's seconds), the mutated ``rpf+int8`` and
-           ``bruteforce`` beside theirs
+           ``bruteforce`` beside theirs; the knobs cell: fixed P = 1, 2, 4,
+           the schedule (cap 4, tol 0.01) with its mean probes, the waves
+           (10 trees, tol 0.01) with the trees used, both filter regimes
+           (recall against exact k-NN over the matching rows)
   profile  device time per search by kernel and the device's idle share
            (``torch.profiler`` over 5 searches of 1024 queries), the
-           mutated and compacted ``rpf`` index at 4 probes too
+           mutated and compacted ``rpf`` index at 4 probes too, and the
+           knobs cell's schedule, waves and filters
   digests  the sha256 (16 hex digits) of kernels A's, B's, C's and D's
            outputs on every case above, at the timed shapes (B's stage-2
            shortlists) and in the any-k rounds, to compare two builds' runs
@@ -147,6 +169,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K = 10
 EXPAND = 4
+TS0 = 1_700_000_000_000_000_000     # the timestamp column's origin (ns)
 BATCHES = (1, 7, 1024)
 PROBES = (1, 4)
 RTOL, ATOL = 1e-5, 1e-6
@@ -440,8 +463,10 @@ def main():
     from repro_torch.core.search import (mask_duplicates, merge_topk_pairs,
                                          recall_at_k)
     from repro_torch.data.synthetic import iss_like, mnist_like
+    from repro_torch.filter import Eq
+    from repro_torch.filter.predicate import use_brute_force, widen_params
     from repro_torch.index import (IndexSpec, SearchParams, build_index,
-                                   load_index)
+                                   load_index, tune, tune_report)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.chi2_topk import chi2_topk
     from repro_torch.kernels.common import LAUNCHES, REF_CALLS
@@ -484,7 +509,8 @@ def main():
           "ptxas": regs})
 
     # ---- main path: rpf ------------------------------------------------------
-    db_np, _, q_np, _ = mnist_like(cfgmod.N_DB, n_test=cfgmod.QUERY_BATCH,
+    db_np, db_labels, q_np, _ = mnist_like(cfgmod.N_DB,
+                                           n_test=cfgmod.QUERY_BATCH,
                                    d=cfgmod.DIM, seed=0)
     spec = IndexSpec(backend="rpf", forest=cfgmod.CONFIG, seed=0)
     queries = torch.from_numpy(q_np).to(dev)
@@ -1473,8 +1499,19 @@ def main():
     n_base = cfgmod.N_DB
     n_seal = n_base // 10               # the seal threshold at 0.1
     n_added = n_seal + n_seal // 6
-    churn_np = mnist_like(n_added + n_base // 200, n_test=1, d=cfgmod.DIM,
-                          seed=1)[0]
+    churn_np, churn_labels = mnist_like(n_added + n_base // 200, n_test=1,
+                                        d=cfgmod.DIM, seed=1)[:2]
+
+    def row_meta(gid, label):
+        """A row's metadata: its class, id % 100 and a timestamp."""
+        return {"label": int(label), "bucket": gid % 100, "ts": TS0 + gid}
+
+    # the base rows' columns (the knobs path's too): Eq("bucket", 7) keeps
+    # 1% of the rows (the brute regime), Eq("label", 3) about 10% (widened)
+    base_meta = {"label": db_labels.astype(np.int64),
+                 "bucket": np.arange(n_base, dtype=np.int64) % 100,
+                 "ts": TS0 + np.arange(n_base, dtype=np.int64)}
+    p_brute, p_wide = Eq("bucket", 7), Eq("label", 3)
     dead_base = list(range(0, n_base, 30))
     dead_seg1 = list(range(n_base, n_base + n_seal, 12))
     dead_delta = list(range(n_base + n_seal, n_base + n_added, 2))
@@ -1500,20 +1537,23 @@ def main():
 
     def drive_mutate(name):
         t0 = time.perf_counter()
-        idx = build_index(db_np, mut_specs[name], device=dev)
+        idx = build_index(db_np, mut_specs[name], device=dev,
+                          metadata=base_meta)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         for j in range(n_added):
             if j == n_seal - 1:    # this add seals the delta into segment 1
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            idx.add(churn_np[j])
+            idx.add(churn_np[j], metadata=row_meta(n_base + j,
+                                                   churn_labels[j]))
             if j == n_seal - 1:
                 torch.cuda.synchronize()
                 seal_s = time.perf_counter() - t0
         idx.delete(dead_ids)
         for j, gid in enumerate(upserted):
-            idx.upsert(gid, churn_np[n_added + j])
+            idx.upsert(gid, churn_np[n_added + j], metadata=row_meta(
+                gid, churn_labels[n_added + j]))
         return idx, build_s, seal_s, [idx.search(queries, p)
                                       for p in mut_params[name]]
 
@@ -1612,8 +1652,29 @@ def main():
         int8_view, queries[lo:hi], 4), queries.shape[0])
     mut_err["rpf+int8 P=4"] = compare_topk(torch, int8_got, want, K)
     integrity(int8_got, "rpf+int8")
+    # 6. a filtered search in the brute regime (Eq("bucket", 7): the live
+    # rows with id % 100 == 7) is bitwise a bruteforce build over the live
+    # matching rows, on every backend
+    match = gids_live % 100 == 7
+    n_match = int(match.sum())
+    check(use_brute_force(n_match / gids_live.shape[0], n_match),
+          f"mutate: {n_match} matches are not the brute regime")
+    fresh_f = build_index(rows_live[match], IndexSpec(backend="bruteforce"),
+                          device=dev)
+    gm = torch.from_numpy(gids_live[match]).to(dev)
+    fd, fi = fresh_f.search(queries, SearchParams(k=K))
+    want_f = (fd, torch.where(fi >= 0, gm[fi.clamp_min(0).long()], -1))
+    for name in mut:
+        got = mut[name][0].search(queries, SearchParams(k=K,
+                                                        filter=p_brute))
+        check(bitwise(got, want_f), f"mutate {name}: the filtered brute "
+              f"regime differs from a bruteforce build over the live "
+              f"matching rows")
+    del fresh_f
     emit({"phase": "compare", "path": "mutate", "max_abs_err": mut_err,
-          "bruteforce_bitwise_fresh": True, "result_ids_from": from_part})
+          "bruteforce_bitwise_fresh": True, "result_ids_from": from_part,
+          "filtered_brute_regime_bitwise_fresh": {"matches": n_match,
+                                                  "backends": sorted(mut)}})
 
     # 5. save -> load_index on the card: the same answers bit for bit (the
     # save seals the delta into segment 2 first)
@@ -1631,6 +1692,13 @@ def main():
         check(bitwise(loaded.search(queries, params),
                       m_rpf.search(queries, params)),
               f"save / load_index changed the answers at P = {p}")
+    for pred in (p_brute, p_wide):
+        params = SearchParams(k=K, filter=pred)
+        check(bitwise(loaded.search(queries, params),
+                      m_rpf.search(queries, params)),
+              f"save / load_index changed the filtered answers ({pred})")
+    check(loaded.stats()["metadata_columns"] == ["bucket", "label", "ts"],
+          f"loaded metadata columns {loaded.stats()['metadata_columns']}")
     saved_st = m_rpf.stats()
     check(all(loaded.stats()[key] == saved_st[key] for key in (
         "n_segments", "n_live", "n_tombstones", "n_delta")),
@@ -1686,8 +1754,137 @@ def main():
           "compact_note": "compact(block=False) to join, one search "
                           "during it", "checks": [
               "bruteforce bitwise fresh", "rpf / rpf+int8 vs plain",
-              "save-load bitwise", "search during compaction bitwise old",
+              "filtered brute regime bitwise fresh (3 backends)",
+              "save-load bitwise (filtered too)",
+              "search during compaction bitwise old",
               "compacted bitwise fresh", "two builds equal"]})
+
+    # ---- path: knobs (probe schedules, tree waves, filters, tune) ---------
+    # the MNIST-784 index on rpf and rpf+int8 (expand 4) with the base
+    # rows' metadata columns: fixed searches at P = 1, 2 and 4, a 100-query
+    # subset at P = 2, schedules (cap 4) and waves (10 trees) at tol 0 and
+    # 0.01, both filter regimes, expand 0, and tune() on 512 queries
+    sub = torch.from_numpy(np.random.default_rng(5).permutation(
+        cfgmod.QUERY_BATCH)[:100]).to(dev)
+    tune_q = queries[:512]
+
+    def drive_knobs():
+        out = {}
+        for name, sp in (("rpf", spec), ("rpf+int8", spec8)):
+            idx = build_index(db_np, sp, device=dev, metadata=base_meta)
+            e = {"expand": EXPAND} if name == "rpf+int8" else {}
+            r = {f"P={p}": idx.search(queries, SearchParams(k=K, n_probes=p,
+                                                            **e))
+                 for p in (1, 2, 4)}
+            r["P=1 k+1"] = idx.search(queries, SearchParams(k=K + 1, **e))
+            r["P=2 subset"] = idx.search(queries[sub], SearchParams(
+                k=K, n_probes=2, **e))
+            for tol in (0.0, 0.01):
+                r[f"schedule tol={tol}"] = idx.search(queries, SearchParams(
+                    k=K, probe_schedule=4, tol=tol, **e))
+                r[f"schedule tol={tol} probes"] = idx.last_mean_probes
+                r[f"waves tol={tol}"] = idx.search(queries, SearchParams(
+                    k=K, adaptive_wave=10, tol=tol, **e))
+                r[f"waves tol={tol} trees"] = idx.last_trees_used
+            for tag, pred in (("brute", p_brute), ("widened", p_wide)):
+                r[tag] = idx.search(queries, SearchParams(k=K, filter=pred,
+                                                          **e))
+            if name == "rpf":
+                r["expand=0"] = idx.search(queries, SearchParams(k=K,
+                                                                 expand=0))
+                t0 = time.perf_counter()
+                r["tune"] = tune_report(idx, tune_q, target_recall=0.95)
+                torch.cuda.synchronize()
+                r["tune_s"] = time.perf_counter() - t0
+                r["tune again"] = tune(idx, tune_q, target_recall=0.95)
+            out[name] = (idx, r)
+        return out
+
+    knobs, launches, ref_calls = counted(torch, counters, drive_knobs)
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk",
+                                  "fused_gather_topk_int8", "fused_scan"),
+            "knobs")
+    launches_by_path["knobs"] = launches
+    n_label = int((db_labels == 3).sum())
+    sel_wide = n_label / n_base
+    check(use_brute_force(0.01, 600) and not use_brute_force(sel_wide,
+                                                              n_label),
+          f"the knobs path's filters are not one of each regime: "
+          f"{n_label} rows of label 3")
+    wide_probes = widen_params(SearchParams(k=K), sel_wide).n_probes
+    knob_checks = {}
+    for name, (idx, r) in knobs.items():
+        c = {}
+        # 1. a schedule at tol 0 is bitwise the fixed search at its cap
+        check(bitwise(r["schedule tol=0.0"], r["P=4"]),
+              f"knobs {name}: the schedule at tol 0 differs from P = 4")
+        check(r["schedule tol=0.0 probes"] == 1 + 2 + 4,
+              f"knobs {name}: {r['schedule tol=0.0 probes']} probes at "
+              f"tol 0")
+        # 2. a query's answer does not depend on the rest of its batch
+        check(bitwise(r["P=2 subset"], tuple(t[sub] for t in r["P=2"])),
+              f"knobs {name}: a 100-query subset answers differently")
+        # 3. waves at tol 0 use the whole forest and equal the fixed search
+        # (rpf: each pair scores the same bits in either; rpf+int8 takes a
+        # shortlist a wave, so its answer is printed, not held)
+        check(r["waves tol=0.0 trees"] == cfgmod.CONFIG.n_trees,
+              f"knobs {name}: waves at tol 0 used "
+              f"{r['waves tol=0.0 trees']} trees")
+        c["waves_tol0_bitwise_fixed"] = bitwise(r["waves tol=0.0"],
+                                                r["P=1"])
+        c["waves_tol0_ids_equal_rows"] = int(
+            (r["waves tol=0.0"][1] == r["P=1"][1]).all(1).sum())
+        if name == "rpf":
+            c["waves_tol0_max_abs_err"] = compare_topk(
+                torch, r["waves tol=0.0"], r["P=1 k+1"], K)
+        # 4. the brute regime: bitwise a bruteforce build over its rows
+        rows_b = np.flatnonzero(base_meta["bucket"] == 7)
+        fresh_k = build_index(db_np[rows_b], IndexSpec(backend="bruteforce"),
+                              device=dev)
+        gb = torch.from_numpy(rows_b.astype(np.int32)).to(dev)
+        fd, fi = fresh_k.search(queries, SearchParams(k=K))
+        check(bitwise(r["brute"], (fd, torch.where(
+            fi >= 0, gb[fi.clamp_min(0).long()], -1))),
+            f"knobs {name}: the brute regime differs from a bruteforce "
+            f"build over the 600 matching rows")
+        del fresh_k
+        # 5. the widened regime: matching rows only, no id twice a row
+        wi = r["widened"][1]
+        ok = wi >= 0
+        lab = torch.from_numpy(db_labels).to(dev)
+        check(bool((lab[wi.clamp_min(0).long()][ok] == 3).all()),
+              f"knobs {name}: the widened regime returned a row of another "
+              f"label")
+        srt = wi.sort(dim=1)[0]
+        check(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
+                        ).any()), f"knobs {name}: an id twice in a row")
+        knob_checks[name] = c
+    # 6. expand 0: rpf serves it bitwise as expand 4; rpf+int8 refuses
+    check(bitwise(knobs["rpf"][1]["expand=0"], knobs["rpf"][1]["P=1"]),
+          "expand=0 changed the rpf answer")
+    try:
+        knobs["rpf+int8"][0].search(queries, SearchParams(k=K, expand=0))
+        raise RuntimeError("check failed: rpf+int8 served expand=0")
+    except ValueError as err:
+        expand0_error = str(err)
+    # 7. tune picks the same params twice
+    chosen, report = knobs["rpf"][1]["tune"]
+    check(knobs["rpf"][1]["tune again"] == chosen,
+          "tune chose other params on the same index and queries")
+    emit({"phase": "knobs", "launches": launches, "ref_calls": ref_calls,
+          "checks": knob_checks, "brute_rows": 600,
+          "widened_rows": n_label, "widened_selectivity": sel_wide,
+          "widened_n_probes": wide_probes,
+          "schedule_tol0_bitwise_fixed_cap": True,
+          "subset_rows_bitwise": True, "expand0_rpf_bitwise_expand4": True,
+          "expand0_rpf_int8_error": expand0_error,
+          "tune": {"params": chosen.to_dict(), "seconds":
+                   knobs["rpf"][1]["tune_s"], "queries": tune_q.shape[0],
+                   "same_twice": True, "report": [
+                       {"n_trees": row["params"].n_trees,
+                        "n_probes": row["params"].n_probes,
+                        "recall": row["recall"], "cost": row["cost"]}
+                       for row in report]}})
 
     # ---- timing, recall ----------------------------------------------------
     _, true_i = exact_knn(queries, db, K)
@@ -1787,6 +1984,55 @@ def main():
                   "mutated_ms": time_ms(torch, lambda: mut["bruteforce"][
                       2].search(queries, pb), 10, warm=1)}}})
 
+    # the knobs cell: the metadata index's fixed, scheduled, wave and
+    # filtered searches; recall against exact k-NN (the filtered searches
+    # against exact k-NN over their matching rows)
+    def true_over(rows):
+        rows_t = torch.from_numpy(rows).to(dev)
+        _, pos = exact_knn(queries, db[rows_t], K)
+        return rows_t[pos.long()].int()
+
+    true_f = {"brute": true_over(np.flatnonzero(base_meta["bucket"] == 7)),
+              "widened": true_over(np.flatnonzero(db_labels == 3))}
+    knob_cells = {}
+    for name, (idx, _) in knobs.items():
+        e = {"expand": EXPAND} if name == "rpf+int8" else {}
+        cases = {f"fixed P={p}": (SearchParams(k=K, n_probes=p, **e),
+                                  true_i) for p in (1, 2, 4)}
+        cases["schedule cap 4 tol 0.01"] = (SearchParams(
+            k=K, probe_schedule=4, tol=0.01, **e), true_i)
+        cases["waves 10 tol 0.01"] = (SearchParams(
+            k=K, adaptive_wave=10, tol=0.01, **e), true_i)
+        cases["filter brute (bucket 7)"] = (SearchParams(
+            k=K, filter=p_brute, **e), true_f["brute"])
+        cases["filter widened (label 3)"] = (SearchParams(
+            k=K, filter=p_wide, **e), true_f["widened"])
+        cell = {}
+        for tag, (params, truth) in cases.items():
+            ms = time_ms(torch, lambda: idx.search(queries, params), 25)
+            _, ids = idx.search(queries, params)
+            cell[tag] = {"ms_per_batch": ms,
+                         "qps": cfgmod.QUERY_BATCH / ms * 1e3,
+                         "recall_at_1": recall_at_k(ids[:, :1], truth[:, :1]),
+                         "recall_at_10": recall_at_k(ids, truth)}
+            # the engine's counters (the brute regime runs no engine)
+            if params.probe_schedule or params.filter is p_wide:
+                cell[tag]["mean_probes"] = idx.last_mean_probes
+            if params.adaptive_wave:
+                cell[tag]["trees_used"] = idx.last_trees_used
+        knob_cells[name] = cell
+    # what the brute regime would cost as a masked scan of the whole
+    # segment (kernel B's scan loads no dead row but still scores it)
+    kidx = knobs["rpf"][0]
+    seg0 = kidx.snapshot().segments[0]
+    mask_b = seg0.filter_valid(p_brute, kidx.meta_store)[1]
+    masked_ms = time_ms(torch, lambda: fused_scan(queries, seg0.rows, K,
+                                                  "l2", mask_b), 25)
+    emit({"phase": "timing", "cell": "rpf_mnist784 / knobs",
+          "batch": cfgmod.QUERY_BATCH, "k": K, "card": smi,
+          "widened_n_probes": wide_probes, "backends": knob_cells,
+          "brute_regime_as_masked_60000_row_scan_ms": masked_ms})
+
     # ---- where the time goes: device time by kernel over 5 searches -------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1831,6 +2077,16 @@ def main():
         emit({"phase": "profile", "cell": cell, "batch": queries.shape[0],
               "card": smi, "n_probes": {4: breakdown(
                   idx, queries, SearchParams(k=K, n_probes=4))}})
+    emit({"phase": "profile", "cell": "rpf_mnist784 / knobs",
+          "batch": queries.shape[0], "card": smi, "searches": {
+              tag: breakdown(knobs["rpf"][0], queries, params)
+              for tag, params in (
+                  ("schedule cap 4 tol 0.01", SearchParams(
+                      k=K, probe_schedule=4, tol=0.01)),
+                  ("waves 10 tol 0.01", SearchParams(
+                      k=K, adaptive_wave=10, tol=0.01)),
+                  ("filter brute", SearchParams(k=K, filter=p_brute)),
+                  ("filter widened", SearchParams(k=K, filter=p_wide)))}})
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

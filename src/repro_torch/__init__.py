@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the random-partition-forest ANN system (Zhong 2015).
 
 The JAX package ``repro`` is the reference; this package mirrors its module
-layout (``core/``, ``kernels/``, ``index/``, ``data/``, ``configs/``) and
-never imports it or JAX.  The paper's query path -- forest descent, candidate
+layout (``core/``, ``kernels/``, ``index/``, ``filter/``, ``data/``,
+``configs/``) and never imports it or JAX.  The paper's query path -- forest descent, candidate
 union, exact rerank -- runs on two hand-written CUDA kernels for Hopper
 (``csrc/``), each with a plain PyTorch version beside it.
 

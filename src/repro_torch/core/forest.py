@@ -91,6 +91,12 @@ class Forest(NamedTuple):
         """The first ``n_trees`` trees: itself a valid smaller forest."""
         return Forest(*(a[:n_trees] for a in self))
 
+    def window(self, lo: int, hi: int) -> "Forest":
+        """Trees ``lo`` to ``hi`` - 1 (clipped to the forest), as views:
+        itself a valid smaller forest.  Each array stays contiguous, so a
+        kernel given one reads from its ``data_ptr()``, offset included."""
+        return Forest(*(a[lo:hi] for a in self))
+
 
 Draws = Callable[[int], tuple]
 

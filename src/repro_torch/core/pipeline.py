@@ -106,8 +106,13 @@ def rerank_fused_quantized(queries: torch.Tensor, cand_ids: torch.Tensor,
     repeated rows never take a shortlist place.  Stage 2 reranks the
     (B, k') shortlist against ``qdb.fp`` through the fp32 fused kernel
     with dedup off; the shortlist keeps stage 1's slot order, so stage 2's
-    ties go to the earlier shortlist slot, as in the reference.
+    ties go to the earlier shortlist slot, as in the reference.  A
+    shortlist of k' = 0 (``expand`` 0) raises ``ValueError``, as the
+    reference's top-k does.
     """
+    if expand * k < 1:
+        raise ValueError(f"the int8 shortlist needs k' = expand * k >= 1, "
+                         f"got expand={expand}, k={k}")
     ids = _valid_ids(cand_ids, mask, dedup, valid)
     kp = min(expand * k, ids.shape[1])
     _, short_i = _stream_rerank(

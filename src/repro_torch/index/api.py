@@ -20,7 +20,11 @@ every backend, and the segmented mutable lifecycle.
     ``tuned_params``,
   * ``index.save(path)`` / ``load_index(path)`` -- the reference's format-5
     multi-segment manifest (format 1-4 manifests load too), so an index
-    saved by either package loads into the other.
+    saved by either package loads into the other,
+  * ``build_index(..., metadata={col: values})`` -- per-row int,
+    categorical or timestamp columns that ``SearchParams.filter``
+    predicates (``repro_torch.filter``) select on; ``add`` and ``upsert``
+    then take the new row's ``metadata``.
 
 Randomness.  An ``rpf`` engine's forest draws from a ``torch.Generator``.
 The first build draws from the caller's generator (else one seeded with
@@ -36,8 +40,8 @@ back bit for bit; a loaded index draws from that seed.
 Thread safety: mutations serialize on a per-index lock and publish a
 fresh view; searches read the latest view with one attribute load.
 ``compact(block=False)`` rebuilds on a daemon thread on the current
-stream.  Metadata columns and filters wait for ROADMAP.md queue 1 item 5:
-a manifest that carries them raises ``CapabilityError``.
+stream, then retunes ``tuned_params`` if the live rows drifted by more than
+a quarter since this session's ``tune()`` (``index/tune.py``).
 """
 from __future__ import annotations
 
@@ -48,8 +52,8 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.device import resolve_device
-from repro_torch.index.params import (CapabilityError, IndexSpec,
-                                      SearchParams, Violation)
+from repro_torch.filter.metadata import MetaBlock, MetadataStore
+from repro_torch.index.params import IndexSpec, SearchParams
 from repro_torch.index.segments import (DELTA_SID, DeltaBuffer, IndexView,
                                         SealedSegment)
 
@@ -135,7 +139,8 @@ def _host_row(x) -> np.ndarray:
 def build_index(db, spec: IndexSpec | None = None, *,
                 device: str | torch.device | None = None,
                 generator: torch.Generator | None = None, draws=None,
-                **spec_kw) -> "Index":
+                metadata: dict | None = None,
+                meta_schema: dict | None = None, **spec_kw) -> "Index":
     """Build an index over ``db`` (N, d) per ``spec`` (or
     ``IndexSpec(**spec_kw)``) on ``device`` (the GPU unless
     ``device="cpu"``).
@@ -144,11 +149,15 @@ def build_index(db, spec: IndexSpec | None = None, *,
     ``spec.seed``.  ``draws`` injects randomness instead: a ``SegmentDraws``
     for every build of the index, or one build's level draws (see
     ``core.forest.build_forest``), which serve the first build only.
+    ``metadata`` attaches per-row columns ({name: N values}) for
+    ``SearchParams.filter``; their kinds (int, categorical, timestamp) are
+    inferred from the dtypes or pinned by ``meta_schema`` ({name: kind}).
     """
     spec = spec if spec is not None else IndexSpec(**spec_kw)
     rows = _device_rows(db, resolve_device(device))
     return get_backend(spec.backend)(rows, spec, generator=generator,
-                                     draws=draws)
+                                     draws=draws, metadata=metadata,
+                                     meta_schema=meta_schema)
 
 
 def load_index(path: str, device: str | torch.device | None = None
@@ -179,7 +188,13 @@ class Index:
     engine_cls: type | None = None
 
     def __init__(self, rows: torch.Tensor, spec: IndexSpec, *,
-                 generator: torch.Generator | None = None, draws=None):
+                 generator: torch.Generator | None = None, draws=None,
+                 metadata: dict | None = None,
+                 meta_schema: dict | None = None):
+        meta_store = meta_block = None
+        if metadata is not None:
+            meta_store, meta_block = MetadataStore.from_arrays(
+                metadata, int(rows.shape[0]), schema=meta_schema)
         self._init_base(spec, rows.device, int(rows.shape[1]))
         self._draws = draws if isinstance(draws, SegmentDraws) else None
         if generator is None:
@@ -192,8 +207,10 @@ class Index:
             engine = self.engine_cls(spec, rows, generator=generator,
                                      draws=draws)
         seg = SealedSegment(sid=0, engine=engine,
-                            gids=np.arange(rows.shape[0], dtype=np.int32))
-        self._init_runtime([seg], next_gid=rows.shape[0], next_sid=1)
+                            gids=np.arange(rows.shape[0], dtype=np.int32),
+                            meta=meta_block)
+        self._init_runtime([seg], next_gid=rows.shape[0], next_sid=1,
+                           meta_store=meta_store)
 
     def _init_base(self, spec: IndexSpec, device: torch.device, dim: int
                    ) -> None:
@@ -213,14 +230,21 @@ class Index:
                          else np.asarray(key_data, np.uint32))
 
     def _init_runtime(self, segments: list[SealedSegment], next_gid: int,
-                      next_sid: int) -> None:
+                      next_sid: int, meta_store: MetadataStore | None = None
+                      ) -> None:
         """Shared tail of __init__ and the checkpoint loaders."""
         self._tuned_params: SearchParams | None = None
         self._shard_params: tuple[SearchParams, ...] | None = None
         self._serving_plan: dict | None = None
+        # what this session's last tune() saw (sample queries, its
+        # arguments, the live-row count): compact() retunes from it after
+        # churn; it does not ride the manifest
+        self._tune_ctx: dict | None = None
+        self._tuned_n_live = 0
         self._n_retunes = 0
+        self._meta_store = meta_store
         self._segments = list(segments)
-        self._delta = DeltaBuffer(self._d, self._device)
+        self._delta = self._new_delta()
         self._next_gid = int(next_gid)
         self._next_sid = int(next_sid)
         self._compacting = False
@@ -238,14 +262,16 @@ class Index:
     @classmethod
     def _assemble(cls, spec: IndexSpec, device: torch.device, dim: int,
                   key_data, segments: list[SealedSegment], next_gid: int,
-                  next_sid: int) -> "Index":
+                  next_sid: int, meta_store: MetadataStore | None = None
+                  ) -> "Index":
         """An index over built segments (a loaded or carried state)."""
         obj = cls.__new__(cls)
         obj._init_base(spec, device, dim)
         words = np.asarray(key_data, np.uint32).reshape(-1)
         obj._init_seed((int(words[0]) << 32) | int(words[1]), None,
                        key_data=words)
-        obj._init_runtime(segments, next_gid=next_gid, next_sid=next_sid)
+        obj._init_runtime(segments, next_gid=next_gid, next_sid=next_sid,
+                          meta_store=meta_store)
         return obj
 
     @classmethod
@@ -271,10 +297,13 @@ class Index:
                             else seal_seed(self.seed, sid))
         return self.engine_cls(self.spec, rows, generator=gen)
 
+    def _new_delta(self) -> DeltaBuffer:
+        return DeltaBuffer(self._d, self._device, meta_store=self._meta_store)
+
     def _publish_locked(self) -> None:
         """Swap in a fresh immutable view (caller holds the writer lock)."""
         self._view = IndexView(tuple(self._segments), self._delta.view(),
-                               self._device, self._d)
+                               self._device, self._d, store=self._meta_store)
 
     def snapshot(self) -> IndexView:
         """The current immutable view: searchable, frozen, lock-free."""
@@ -314,6 +343,11 @@ class Index:
         """The first segment's engine (the whole index while pristine)."""
         return self._primary_engine
 
+    @property
+    def meta_store(self) -> MetadataStore | None:
+        """The metadata schema and categorical vocab (None: no metadata)."""
+        return self._meta_store
+
     def stats(self) -> dict:
         """Consistent counter snapshot (taken under the writer lock)."""
         with self._lock:
@@ -335,7 +369,8 @@ class Index:
                 "n_compactions": self._n_compactions,
                 "n_retunes": self._n_retunes,
                 "compaction_in_progress": self._compacting,
-                "metadata_columns": [],
+                "metadata_columns": (sorted(self._meta_store.columns)
+                                     if self._meta_store is not None else []),
                 **self._extra_stats(),
             }
 
@@ -400,15 +435,29 @@ class Index:
         return self._view.search(queries, params, **params_kw)
 
     # ------------------------------------------------------------ mutations
-    def add(self, x) -> int:
+    def _encode_meta_locked(self, metadata: dict | None) -> dict | None:
+        """A point's metadata -> column codes.  An index with metadata needs
+        every column on every add (predicates are total); metadata on an
+        index without any raises rather than being dropped."""
+        if self._meta_store is None:
+            if metadata:
+                raise ValueError("this index carries no metadata — build "
+                                 "with build_index(..., metadata=...) first")
+            return None
+        return self._meta_store.encode_point(metadata)
+
+    def add(self, x, metadata: dict | None = None) -> int:
         """Add one point; returns its id.  It lands in the delta buffer
         (searched at once); the delta seals into an immutable segment with
-        its own engine once it outgrows the seal threshold."""
+        its own engine once it outgrows the seal threshold.  ``metadata``
+        ({column: value}) must cover the index's metadata schema exactly
+        when it has one."""
         x = _host_row(x)
         with self._lock:
+            codes = self._encode_meta_locked(metadata)
             gid = self._next_gid
             self._next_gid += 1
-            row = self._delta.append(x, gid)
+            row = self._delta.append(x, gid, meta=codes)
             self._loc[gid] = (DELTA_SID, row)
             self._maybe_seal_locked()
             self._publish_locked()
@@ -447,17 +496,19 @@ class Index:
             self._publish_locked()
         return len(id_list)
 
-    def upsert(self, gid: int, x) -> int:
+    def upsert(self, gid: int, x, metadata: dict | None = None) -> int:
         """Insert or replace the vector of ``gid`` (the id is kept): the old
         row, if any, is tombstoned and the new one appended to the delta,
-        so one row per id is live at all times."""
+        so one row per id is live at all times.  On an index with metadata
+        the new row's ``metadata`` (every column) replaces the old row's."""
         gid = int(gid)
         x = _host_row(x)
         with self._lock:
+            codes = self._encode_meta_locked(metadata)
             old = self._loc.get(gid)
             if old is not None:
                 self._kill_locked(old)
-            row = self._delta.append(x, gid)
+            row = self._delta.append(x, gid, meta=codes)
             self._loc[gid] = (DELTA_SID, row)
             if gid >= self._next_gid:
                 self._next_gid = gid + 1
@@ -493,18 +544,19 @@ class Index:
 
     def _seal_delta_locked(self) -> None:
         """Freeze the delta's live rows into a new immutable segment."""
-        rows, gids = self._delta.live_rows()
+        rows, gids, meta_cols = self._delta.live_rows()
         if rows.shape[0] == 0:
-            self._delta = DeltaBuffer(self._d, self._device)
+            self._delta = self._new_delta()
             return
         sid = self._next_sid
         # build the engine BEFORE retiring the delta: a failed build must
         # not lose the pending adds or corrupt the directory
         engine = self._new_engine(_device_rows(rows, self._device), sid)
         self._next_sid += 1
-        self._delta = DeltaBuffer(self._d, self._device)
+        self._delta = self._new_delta()
+        meta = MetaBlock(meta_cols) if meta_cols is not None else None
         self._segments.append(SealedSegment(sid=sid, engine=engine,
-                                            gids=gids))
+                                            gids=gids, meta=meta))
         self._loc.update(zip(gids.tolist(),
                              ((sid, j) for j in range(gids.shape[0]))))
         self._n_seals += 1
@@ -526,7 +578,10 @@ class Index:
         returns the thread; ``block=True`` returns a stats dict.  The
         rebuild gathers the live rows on the device in canonical order and
         draws as the first build did, so a compacted index answers bitwise
-        as a fresh ``build_index`` of its live rows.
+        as a fresh ``build_index`` of its live rows.  Metadata columns are
+        gathered and concatenated in the same order.  After the swap, a
+        tuned index whose live rows drifted past the staleness threshold
+        retunes (:meth:`_maybe_retune`).
         """
         with self._lock:
             if self._compacting:
@@ -547,6 +602,9 @@ class Index:
                            for r in idx]
                 gids = (np.concatenate([seg.gids[idx] for seg, idx in parts])
                         if parts else np.zeros(0, np.int32))
+                meta = (MetaBlock.concat([seg.meta.take(idx)
+                                          for seg, idx in parts])
+                        if self._meta_store is not None else None)
                 rows = (torch.cat([
                     seg.rows[torch.from_numpy(idx).to(self._device)]
                     for seg, idx in parts]) if parts
@@ -567,7 +625,7 @@ class Index:
                         sid = self._next_sid
                         self._next_sid += 1
                         seg = SealedSegment(sid=sid, engine=engine,
-                                            gids=gids, live=live)
+                                            gids=gids, live=live, meta=meta)
                         for j, (g, alive) in enumerate(zip(gids.tolist(),
                                                            live)):
                             if alive:
@@ -591,19 +649,33 @@ class Index:
         t.start()
         return t
 
+    # retune when the live-row count has drifted by more than this share
+    # since the operating point was tuned
+    _RETUNE_STALENESS = 0.25
+
     def _maybe_retune(self) -> None:
-        """The reference retunes ``tuned_params`` here after churn, from
-        the context its last ``tune()`` recorded.  ``tune()`` is not ported
-        yet (ROADMAP.md queue 1 item 5), so no tuning context can exist
-        and this does nothing; ``stats()['n_retunes']`` stays 0."""
+        """After a compaction, retune ``tuned_params`` when the live rows
+        no longer resemble those the last ``tune()`` of this session
+        measured: with the same sample queries and arguments, so the new
+        point answers the same recall target.  Counted in
+        ``stats()['n_retunes']``."""
+        ctx, tuned_n = self._tune_ctx, self._tuned_n_live
+        if ctx is None or tuned_n <= 0:
+            return
+        if abs(self.n_rows - tuned_n) / tuned_n < self._RETUNE_STALENESS:
+            return
+        from repro_torch.index.tune import tune_report  # tune imports us
+        tune_report(self, ctx["queries"], **ctx["kwargs"])
+        self._n_retunes += 1
 
     # -------------------------------------------------------------- save/load
     def save(self, path: str) -> str:
         """Checkpoint the index under ``path`` (the reference's format-5
         manifest): pending delta rows are sealed first, then every
-        segment's engine state, global ids and tombstone bitmap, the
-        seed's key data, ``tuned_params``, ``shard_params`` and
-        ``serving_plan``.  Returns the step's directory."""
+        segment's engine state, global ids, tombstone bitmap and metadata
+        columns, the seed's key data, ``tuned_params``, ``shard_params``,
+        ``serving_plan`` and the metadata schema and vocab
+        (``meta_schema``).  Returns the step's directory."""
         with self._lock:
             self._seal_delta_locked()
             self._publish_locked()
@@ -615,6 +687,9 @@ class Index:
                     "gids": seg.gids,
                     "live": seg.live,
                 }
+                if self._meta_store is not None:
+                    tree["segments"][f"{i:03d}"]["meta"] = dict(
+                        seg.meta.cols)
                 seg_meta.append({"sid": seg.sid, "n_rows": seg.n_rows})
             extra = {
                 "spec": self.spec.to_dict(),
@@ -629,7 +704,8 @@ class Index:
                 "shard_params": ([p.to_dict() for p in self._shard_params]
                                  if self._shard_params is not None else None),
                 "serving_plan": self._serving_plan,
-                "meta_schema": None,
+                "meta_schema": (self._meta_store.to_json()
+                                if self._meta_store is not None else None),
             }
             return Checkpointer(path, keep=1).save(0, tree, extra=extra)
 
@@ -643,15 +719,7 @@ class Index:
     @classmethod
     def _load(cls, path: str, spec: IndexSpec, manifest: dict,
               device: torch.device) -> "Index":
-        extra = manifest["extra"]
-        if extra.get("meta_schema") is not None:
-            raise CapabilityError([Violation(
-                "metadata", "local",
-                "the manifest carries per-row metadata columns "
-                "(meta_schema), which are not ported yet: ROADMAP.md "
-                "queue 1 item 5")], "local",
-                prefix="index cannot be loaded")
-        if extra.get("format", 1) >= 2:
+        if manifest["extra"].get("format", 1) >= 2:
             return cls._load_v2(path, spec, manifest, device)
         return cls._load_v1(path, spec, manifest, device)
 
@@ -659,26 +727,37 @@ class Index:
     def _load_v2(cls, path: str, spec: IndexSpec, manifest: dict,
                  device: torch.device) -> "Index":
         """Loader of segmented manifests (formats 2 to 5): each format only
-        adds optional extras to format 2's segment state."""
+        adds optional extras to format 2's segment state.  The metadata
+        leaves are read when the manifest has ``meta_schema``, so an older
+        manifest, or one with the schema removed, loads without them."""
         extra = manifest["extra"]
+        meta_schema = extra.get("meta_schema")
+        store = (MetadataStore.from_json(meta_schema)
+                 if meta_schema is not None else None)
+        meta_cols = sorted(store.columns) if store is not None else []
         skeleton = {"key_data": 0, "segments": {
             f"{i:03d}": {"engine": cls.engine_cls.state_skeleton(spec),
-                         "gids": 0, "live": 0}
+                         "gids": 0, "live": 0,
+                         **({"meta": {c: 0 for c in meta_cols}}
+                            if store is not None else {})}
             for i in range(len(extra["segments"]))}}
         state, _ = Checkpointer(path).restore(skeleton,
                                               step=manifest["step"])
         segments = []
         for i, meta in enumerate(extra["segments"]):
             st = state["segments"][f"{i:03d}"]
+            block = (MetaBlock({c: np.asarray(st["meta"][c], store.dtype(c))
+                                for c in meta_cols})
+                     if store is not None else None)
             segments.append(SealedSegment(
                 sid=int(meta["sid"]),
                 engine=cls.engine_cls.from_state(spec, st["engine"], device),
                 gids=np.asarray(st["gids"], np.int32),
-                live=np.asarray(st["live"], bool)))
+                live=np.asarray(st["live"], bool), meta=block))
         obj = cls._assemble(spec, device, int(extra["dim"]),
                             state["key_data"], segments,
                             next_gid=extra["next_gid"],
-                            next_sid=extra["next_sid"])
+                            next_sid=extra["next_sid"], meta_store=store)
         tuned = extra.get("tuned_params")
         if tuned is not None:
             obj._tuned_params = SearchParams.from_dict(tuned)

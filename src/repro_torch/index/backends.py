@@ -17,17 +17,25 @@ tree.  ``params.n_probes`` widens the descent to the most marginal leaves;
 ``params.n_trees`` queries a prefix of the forest (the trees are
 independent, so any prefix is a valid smaller forest); ``params.expand``
 sets the int8 shortlist width; ``params.min_candidates`` sets where the LSH
-cascade stops.  Knobs that do not apply to a backend are inert.
+cascade stops.  On both forest backends ``params.probe_schedule`` replaces
+the fixed probe budget with per-query widening (``core/schedule.py``) and
+``params.adaptive_wave`` queries the forest in early-exit waves of trees
+(``core/adaptive.py``); the engine records the trees and mean probes its
+last search used (``last_trees_used``, ``last_mean_probes``), which
+``index/tune.py``'s cost model reads.  Knobs that do not apply to a
+backend are inert.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.adaptive import adaptive_query
 from repro_torch.core.forest import Forest, build_forest
 from repro_torch.core.lsh import CascadedLSH
 from repro_torch.core.pipeline import fused_query, rerank_fused
 from repro_torch.core.quantized import QuantizedDB, quantize_db
+from repro_torch.core.schedule import scheduled_query
 from repro_torch.index.api import Index, register_backend
 from repro_torch.index.params import IndexSpec, SearchParams
 from repro_torch.index.segments import brute_force_topk
@@ -50,6 +58,8 @@ class RPFEngine:
         self.forest = forest if forest is not None else build_forest(
             rows, spec.forest, generator=generator, draws=draws,
             device=rows.device, tree_chunk=spec.tree_chunk)
+        self.last_trees_used = spec.forest.n_trees
+        self.last_mean_probes = 0.0
 
     def _rerank_source(self) -> torch.Tensor | QuantizedDB:
         return self.db
@@ -62,11 +72,29 @@ class RPFEngine:
         if 0 < params.n_trees < cfg.n_trees:
             forest = forest.prefix(params.n_trees)
             cfg = cfg._replace(n_trees=params.n_trees)
-        return fused_query(forest, q, self._rerank_source(), params.k, cfg,
-                           metric=params.metric, dedup=params.dedup,
-                           mode=params.mode, chunk=params.chunk,
-                           expand=params.expand, n_probes=params.n_probes,
-                           valid=valid, device=self.db.device)
+        src, dev = self._rerank_source(), self.db.device
+        common = dict(metric=params.metric, mode=params.mode,
+                      chunk=params.chunk, expand=params.expand,
+                      dedup=params.dedup, valid=valid, device=dev)
+        if params.probe_schedule > 0:
+            # capabilities() refuses it together with adaptive_wave
+            d, i, _, processed = scheduled_query(
+                forest, q, src, params.k, cfg, cap=params.probe_schedule,
+                tol=params.tol, **common)
+            self.last_trees_used = cfg.n_trees
+            self.last_mean_probes = float(processed.mean())
+            return d, i
+        if params.adaptive_wave > 0:
+            d, i, used = adaptive_query(
+                forest, q, src, params.k, cfg, wave=params.adaptive_wave,
+                tol=params.tol, n_probes=params.n_probes, **common)
+            self.last_trees_used = used
+            self.last_mean_probes = float(params.n_probes)
+            return d, i
+        self.last_trees_used = cfg.n_trees
+        self.last_mean_probes = float(params.n_probes)
+        return fused_query(forest, q, src, params.k, cfg,
+                           n_probes=params.n_probes, **common)
 
     def state_tree(self) -> dict:
         return {"db": self.db, "forest": self.forest}
@@ -180,6 +208,18 @@ class RPFIndex(Index):
     def forest(self) -> Forest:
         """The first segment's forest."""
         return self._primary_engine.forest
+
+    @property
+    def last_trees_used(self) -> int:
+        """Trees the first segment's engine queried on its last search."""
+        return self._primary_engine.last_trees_used
+
+    @property
+    def last_mean_probes(self) -> float:
+        """Mean probes per query the first segment's engine processed on
+        its last search (a schedule's sum over its rounds; ``n_probes`` on
+        the fixed-budget paths)."""
+        return self._primary_engine.last_mean_probes
 
     def _extra_stats(self) -> dict:
         return {"n_trees": self.spec.forest.n_trees}

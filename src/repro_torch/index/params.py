@@ -3,18 +3,17 @@
 
 ``SearchParams`` keeps the reference's fields, so an operating point carried
 across stays valid, and ``capabilities(context)`` gives the reference's
-verdicts in each of its three contexts.  The port serves ``k``, ``metric``
-(aliases included), ``mode``, ``dedup``, ``chunk``, ``n_probes``,
-``n_trees``, ``expand`` (the int8 shortlist width k' = expand*k on
-``rpf+int8``) and ``min_candidates`` (the cascade's stopping count on
-``lsh-cascade``); as in the reference, a knob that does not apply to a
-backend is inert.  The three query knobs that are not ported yet
-(``adaptive_wave``, ``probe_schedule``, ``filter``) each add one
-``Violation`` in every context when set, naming the ROADMAP.md item that
-ports them, so ``require`` raises ``CapabilityError`` for them.
+verdicts in each of its three contexts.  The port serves every knob:
+``k``, ``metric`` (aliases included), ``mode``, ``dedup``, ``chunk``,
+``n_probes``, ``n_trees``, ``expand`` (the int8 shortlist width k' =
+expand*k on ``rpf+int8``, which refuses k' = 0 at the search),
+``min_candidates`` (the cascade's stopping count on ``lsh-cascade``),
+``probe_schedule`` (``core/schedule.py``), ``adaptive_wave`` and ``tol``
+(``core/adaptive.py``) and ``filter`` (a ``repro_torch.filter``
+predicate); as in the reference, a knob that does not apply to a backend
+is inert.
 
-``CAPABILITY_MATRIX`` is the API's contract as the reference states it; the
-port's verdicts equal the reference's apart from those three knobs.
+``CAPABILITY_MATRIX`` is the API's contract as the reference states it.
 """
 from __future__ import annotations
 
@@ -23,6 +22,8 @@ from typing import Any
 
 from repro_torch.core.distances import METRIC_ALIASES, METRICS
 from repro_torch.core.forest import ForestConfig
+from repro_torch.filter.predicate import Predicate
+from repro_torch.filter.predicate import from_dict as predicate_from_dict
 from repro_torch.kernels.ops import canonical_mode
 
 #: The capability contexts a SearchParams can be checked against:
@@ -30,13 +31,6 @@ from repro_torch.kernels.ops import canonical_mode
 #: sharded index over a device mesh) and ``serving`` (a serving runtime's
 #: batched path).
 CONTEXTS = ("local", "sharded", "serving")
-
-# knob -> the ROADMAP.md item that ports it
-NOT_PORTED = {
-    "adaptive_wave": "queue 1 item 5 (query knobs: core/adaptive.py)",
-    "probe_schedule": "queue 1 item 5 (query knobs: core/schedule.py)",
-    "filter": "queue 1 item 5 (query knobs: filter/)",
-}
 
 # the reference's spelling of a mode the port renames, for dicts read by it
 _MODE_OUT = {"kernel": "pallas"}
@@ -99,8 +93,6 @@ class SearchParams:
         object.__setattr__(self, "mode", canonical_mode(self.mode))
         if self.k < 1:
             raise ValueError(f"k must be >= 1, got {self.k}")
-        if self.expand < 1:
-            raise ValueError(f"expand must be >= 1, got {self.expand}")
         if self.n_probes < 1:
             raise ValueError(f"n_probes must be >= 1, got {self.n_probes}")
         if self.n_trees < 0:
@@ -113,8 +105,7 @@ class SearchParams:
 
     def capabilities(self, context: str = "local") -> list[Violation]:
         """Capability violations of this operating point in ``context``
-        (empty = servable there): the reference's matrix, then one
-        violation for each set knob this port does not serve yet."""
+        (empty = servable there): the reference's matrix."""
         if context not in CONTEXTS:
             raise ValueError(f"context must be one of {CONTEXTS}, "
                              f"got {context!r}")
@@ -130,6 +121,12 @@ class SearchParams:
                 f"probe_schedule={self.probe_schedule} with "
                 f"adaptive_wave={self.adaptive_wave} (pick one "
                 f"convergence-gated axis)"))
+        if self.filter is not None and not isinstance(self.filter,
+                                                      Predicate):
+            bad.append(Violation(
+                "filter", context,
+                f"filter must be a repro_torch.filter Predicate, got "
+                f"{type(self.filter).__name__}"))
         if context == "sharded":
             if self.adaptive_wave:
                 bad.append(Violation(
@@ -146,13 +143,6 @@ class SearchParams:
                     "n_trees", context,
                     f"n_trees={self.n_trees} (trees are a build-time "
                     f"shard property)"))
-        for knob, item in NOT_PORTED.items():
-            value = getattr(self, knob)
-            if value not in (0, None):
-                bad.append(Violation(
-                    knob, context,
-                    f"{knob}={value!r} (not ported yet: ROADMAP.md "
-                    f"{item})"))
         return bad
 
     def require(self, context: str = "local") -> "SearchParams":
@@ -181,22 +171,23 @@ class SearchParams:
     def to_dict(self) -> dict[str, Any]:
         """JSON-ready dict in the reference's spelling (``mode="kernel"``
         is written as its alias ``"pallas"``), so either package reads it;
-        a filter with a ``to_dict`` serializes through it, a dict (a
-        predicate read from a manifest) passes through."""
+        a predicate serializes through its tagged form."""
         d = dataclasses.asdict(self)
         d["mode"] = _MODE_OUT.get(self.mode, self.mode)
         if self.filter is not None:
-            d["filter"] = (self.filter if isinstance(self.filter, dict)
-                           else self.filter.to_dict())
+            d["filter"] = self.filter.to_dict()
         return d
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "SearchParams":
-        """Inverse of :meth:`to_dict`; unknown keys are ignored.  A filter
-        stays the predicate's dict: the port has no predicates yet, so
-        :meth:`capabilities` reports it."""
+        """Inverse of :meth:`to_dict`; unknown keys are ignored, and a
+        filter's tagged form (written by either package) rebuilds as a
+        ``repro_torch.filter`` predicate."""
         known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in known})
+        d = {k: v for k, v in d.items() if k in known}
+        if d.get("filter") is not None:
+            d["filter"] = predicate_from_dict(d["filter"])
+        return cls(**d)
 
 
 # The reference's capability matrix (the API's contract) row for row:

@@ -6,8 +6,9 @@ per leaf under the reference's leaf names, ``manifest.json``, written to
 into ``repro_torch`` and answers the same queries (ids equal, distances
 within rtol 1e-5 / atol 1e-6), and the other way round; the same index
 saved by both packages gives the same leaves bit for bit; the format-1
-shim loads; a manifest that carries metadata columns raises
-``CapabilityError`` (ROADMAP.md queue 1 item 5).
+shim loads; manifests that carry metadata columns cross both ways and
+answer filtered searches equal, and a format-4 shim drops the columns as
+the reference's does; ``tuned_params`` with ``expand=0`` load and serve.
 """
 import dataclasses
 import json
@@ -18,8 +19,10 @@ import numpy as np
 import pytest
 
 import repro.index as jindex
+from repro import filter as jfilter
 from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
 from repro.core import forest as jforest
+from repro_torch import filter as tfilter
 from repro_torch import index as tindex
 from repro_torch.checkpoint import checkpointer as tckpt
 from repro_torch.core import forest as tforest
@@ -253,18 +256,157 @@ def test_save_writes_to_tmp_then_renames(corpus, tmp_path, monkeypatch):
         "n_tombstones"] == 3
 
 
-def test_metadata_manifest_raises_capability_error(corpus, tmp_path):
-    db, _ = corpus
-    jspec, _ = _specs("bruteforce")
-    colors = np.array(["red", "blue"])[np.arange(N_DB) % 2]
-    jidx = jindex.build_index(jax.random.key(0), db, jspec,
-                              metadata={"color": colors})
+def _meta(n):
+    return {"color": np.array(["red", "blue", "green"])[np.arange(n) % 3],
+            "price": (np.arange(n) * 7 % 50).astype(np.int64),
+            "ts": np.int64(1_700_000_000_000_000_000) + np.arange(n)}
+
+
+def _mutate_meta(index, seed=3):
+    """``_mutate`` with metadata on every added and upserted row."""
+    rng = np.random.default_rng(seed)
+    added = [index.add(np.abs(rng.normal(size=DIM)).astype(np.float32),
+                       metadata={"color": ["red", "teal"][i % 2],
+                                 "price": i,
+                                 "ts": 2_000_000_000_000_000_000 + i})
+             for i in range(25)]
+    index.delete(list(range(0, 40, 3)) + added[::4])
+    index.upsert(7, np.abs(rng.normal(size=DIM)).astype(np.float32),
+                 metadata={"color": "teal", "price": 3,
+                           "ts": 2_100_000_000_000_000_000})
+    return index
+
+
+def _filters(pkg):
+    return [pkg.Eq("color", "teal"),
+            pkg.And(pkg.In("color", ("red", "blue")),
+                    pkg.Range("price", 10, 30)),
+            pkg.Range("ts", lo=1_700_000_000_000_000_100,
+                      hi=2_000_000_000_000_000_010)]
+
+
+def _assert_same_filtered(tidx, jidx, q, **params):
+    for jf, tf in zip(_filters(jfilter), _filters(tfilter)):
+        jd, ji = jidx.search(q, jindex.SearchParams(mode="ref", filter=jf,
+                                                    **params))
+        td, ti = tidx.search(q, tindex.SearchParams(filter=tf, **params))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("backend", ["bruteforce", "rpf"])
+def test_metadata_manifest_loads_into_the_port(corpus, backend, tmp_path):
+    """A reference manifest with metadata columns loads into the port and
+    answers filtered and unfiltered searches as the reference does."""
+    db, q = corpus
+    jspec, _ = _specs(backend)
+    jidx = _mutate_meta(jindex.build_index(jax.random.key(0), db, jspec,
+                                           metadata=_meta(N_DB)))
+    jidx.tuned_params = jindex.SearchParams(k=4, filter=jfilter.Eq(
+        "color", "red"))
     path = str(tmp_path / "meta")
     jidx.save(path)
-    with pytest.raises(tindex.CapabilityError,
-                       match="ROADMAP.md queue 1 item 5") as err:
-        tindex.load_index(path, device="cpu")
-    assert err.value.violations[0].knob == "metadata"
+    tidx = tindex.load_index(path, device="cpu")
+    jidx = jindex.load_index(path)
+    assert tidx.stats() == jidx.stats()
+    assert tidx.meta_store.to_json() == jidx.meta_store.to_json()
+    for seg_t, seg_j in zip(tidx.snapshot().segments,
+                            jidx.snapshot().segments):
+        for c in ("color", "price", "ts"):
+            np.testing.assert_array_equal(seg_t.meta.column(c),
+                                          seg_j.meta.column(c))
+            assert seg_t.meta.column(c).dtype == seg_j.meta.column(c).dtype
+    _assert_same(tidx, jidx, q, **PARAMS[backend])
+    _assert_same_filtered(tidx, jidx, q, **PARAMS[backend])
+    # the tuned filter rides the manifest as a port predicate
+    assert tidx.tuned_params.filter == tfilter.Eq("color", "red")
+    jd, ji = jidx.search(q, jindex.SearchParams(
+        k=4, mode="ref", filter=jfilter.Eq("color", "red")))
+    td, ti = tidx.search(q)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL,
+                               atol=ATOL)
+    # both keep mutating alike, with metadata
+    m = {"color": "teal", "price": 1, "ts": 5}
+    assert tidx.add(db[0] * 0.5, metadata=m) == jidx.add(db[0] * 0.5,
+                                                        metadata=m)
+    _assert_same_filtered(tidx, jidx, q, **PARAMS[backend])
+
+
+@pytest.mark.parametrize("backend", ["bruteforce", "rpf"])
+def test_port_metadata_manifest_loads_into_the_reference(corpus, backend,
+                                                         tmp_path):
+    db, q = corpus
+    _, tspec = _specs(backend)
+    tidx = _mutate_meta(tindex.build_index(db, tspec, device="cpu",
+                                           metadata=_meta(N_DB)))
+    path = str(tmp_path / "meta")
+    tidx.save(path)
+    jidx = jindex.load_index(path)
+    back = tindex.load_index(path, device="cpu")
+    assert jidx.stats() == back.stats()
+    _assert_same(tidx, jidx, q, **PARAMS[backend])
+    _assert_same_filtered(tidx, jidx, q, **PARAMS[backend])
+    # within the port, filtered answers survive save / load bit for bit
+    for tf in _filters(tfilter):
+        want = tidx.search(q, tindex.SearchParams(k=5, filter=tf))
+        got = back.search(q, tindex.SearchParams(k=5, filter=tf))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _step_manifest(path):
+    step_dir = os.path.join(path, "step_0000000000")
+    return os.path.join(step_dir, "manifest.json")
+
+
+def test_v4_shim_drops_metadata(corpus, tmp_path):
+    """A metadata manifest rewritten as a format-4 writer would have left it
+    (no ``meta_schema``) loads in both packages without the columns:
+    unfiltered searches as before, a filter refused for want of metadata."""
+    db, q = corpus
+    jspec, _ = _specs("rpf")
+    jidx = jindex.build_index(jax.random.key(0), db, jspec,
+                              metadata=_meta(N_DB))
+    path = str(tmp_path / "v4")
+    jidx.save(path)
+    with open(_step_manifest(path)) as f:
+        man = json.load(f)
+    man["extra"]["format"] = 4
+    man["extra"].pop("meta_schema")
+    with open(_step_manifest(path), "w") as f:
+        json.dump(man, f)
+    tidx = tindex.load_index(path, device="cpu")
+    legacy = jindex.load_index(path)
+    assert tidx.meta_store is None and legacy.meta_store is None
+    assert tidx.stats() == legacy.stats()
+    assert tidx.stats()["metadata_columns"] == []
+    _assert_same(tidx, legacy, q, k=5, n_probes=2)
+    with pytest.raises(ValueError, match="no metadata"):
+        tidx.search(q, tindex.SearchParams(k=5, filter=tfilter.Eq(
+            "color", "red")))
+    with pytest.raises(ValueError, match="no metadata"):
+        tidx.add(db[0], metadata={"color": "red"})
+
+
+@pytest.mark.parametrize("backend", ["rpf", "bruteforce"])
+def test_expand_zero_tuned_params_load_and_serve(corpus, backend, tmp_path):
+    """Fault 6: a reference manifest tuned at expand=0 loads into the port,
+    and its bare search answers as the reference's."""
+    db, q = corpus
+    jspec, _ = _specs(backend)
+    jidx = jindex.build_index(jax.random.key(3), db, jspec)
+    jidx.tuned_params = jindex.SearchParams(k=3, expand=0)
+    path = str(tmp_path / "e0")
+    jidx.save(path)
+    tidx = tindex.load_index(path, device="cpu")
+    assert tidx.tuned_params.expand == 0
+    jd, ji = jidx.search(q)
+    td, ti = tidx.search(q)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_checkpointer_flattens_as_the_reference(tmp_path):

@@ -99,10 +99,12 @@ def test_builder_and_carried_forest_agree(indexes):
 def test_search_params_policy():
     assert tindex.SearchParams(mode="pallas").mode == "kernel"
     assert tindex.SearchParams(metric="ip").metric == "dot"
-    for knob in (dict(adaptive_wave=20), dict(probe_schedule=4),
-                 dict(filter=object())):
-        with pytest.raises(tindex.CapabilityError, match="ROADMAP"):
-            tindex.SearchParams(**knob).require()
+    for knob in (dict(adaptive_wave=20), dict(probe_schedule=4)):
+        p = tindex.SearchParams(**knob)
+        assert p.require() is p
+    with pytest.raises(tindex.CapabilityError,
+                       match="repro_torch.filter Predicate"):
+        tindex.SearchParams(filter=object()).require()
     with pytest.raises(tindex.CapabilityError, match="metric='hamming'"):
         tindex.SearchParams(metric="hamming").require()
     with pytest.raises(KeyError, match="unknown index backend"):

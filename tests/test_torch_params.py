@@ -1,12 +1,12 @@
 """The port's capability matrix and value types against the reference's.
 
 ``repro_torch.index.params`` must give the reference's verdicts over a grid
-of params in every context, except that each set knob the port does not
-serve yet (``adaptive_wave``, ``probe_schedule``, ``filter``: ROADMAP.md
-queue 1 item 5) adds exactly one "not ported" violation.  ``to_dict`` /
-``from_dict`` round-trip across the packages, the matrix and its table
-are the reference's, a negative ``probe_schedule`` fails at construction,
-and ``IndexSpec.tree_chunk`` builds the same forest bit for bit.
+of params in every context, each package's own predicate as the filter (a
+filter that is no predicate is refused by both, each naming its own
+package).  ``to_dict`` / ``from_dict`` round-trip across the packages, the
+matrix and its table are the reference's, a negative ``probe_schedule``
+fails at construction and ``expand=0`` constructs, and
+``IndexSpec.tree_chunk`` builds the same forest bit for bit.
 """
 import itertools
 
@@ -19,42 +19,54 @@ import repro.index as jindex
 from repro.core import forest as jforest
 from repro.filter import Eq
 from repro.index import params as jparams
+from repro_torch import filter as tfilter
 from repro_torch import index as tindex
 from repro_torch.core import forest as tforest
 from repro_torch.index import params as tparams
 
 METRICS = ("l2", "ip", "cosine", "chi2", "euclidean", "hamming")
-ITEM5 = ("adaptive_wave", "probe_schedule", "filter")
+
+
+def _filters(tag):
+    """(the reference's filter, the port's) for a grid tag."""
+    if tag == "eq":
+        return Eq("color", "red"), tfilter.Eq("color", "red")
+    if tag == "str":
+        return "color=red", "color=red"
+    return None, None
 
 
 def _grid(metric):
-    for mc, nt, aw, ps, flt in itertools.product(
-            (1, 5), (0, 3), (0, 2), (0, 4), (None, Eq("color", "red"))):
-        yield dict(metric=metric, min_candidates=mc, n_trees=nt,
-                   adaptive_wave=aw, probe_schedule=ps, filter=flt)
+    for mc, nt, aw, ps, ex, flt in itertools.product(
+            (1, 5), (0, 3), (0, 2), (0, 4), (4, 0), (None, "eq", "str")):
+        jf, tf = _filters(flt)
+        kw = dict(metric=metric, min_candidates=mc, n_trees=nt,
+                  adaptive_wave=aw, probe_schedule=ps, expand=ex)
+        yield dict(kw, filter=jf), dict(kw, filter=tf)
 
 
 def _entries(vs):
     return [(v.knob, v.context, v.message, v.hint) for v in vs]
 
 
+def _reference_entries(vs):
+    """The reference's entries with its package's name where the port
+    names its own (the filter's "must be a repro.filter Predicate")."""
+    return [(k, c, m.replace("repro.filter", "repro_torch.filter"), h)
+            for k, c, m, h in _entries(vs)]
+
+
 @pytest.mark.parametrize("metric", METRICS)
 def test_verdicts_equal_the_reference_in_every_context(metric):
-    for kw in _grid(metric):
-        want = jparams.SearchParams(**kw)
-        got = tparams.SearchParams(**kw)
+    for jkw, tkw in _grid(metric):
+        want = jparams.SearchParams(**jkw)
+        got = tparams.SearchParams(**tkw)
         assert got.metric == want.metric
         for ctx in jparams.CONTEXTS:
             theirs = want.capabilities(ctx)
             ours = got.capabilities(ctx)
-            not_ported = [v for v in ours if "not ported yet" in v.message]
-            assert sorted(v.knob for v in not_ported) == sorted(
-                k for k in ITEM5 if kw[k] not in (0, None)), (kw, ctx)
-            for v in not_ported:
-                assert v.context == ctx and "ROADMAP.md queue 1 item 5" in \
-                    str(v)
-            rest = [v for v in ours if v not in not_ported]
-            assert _entries(rest) == _entries(theirs), (kw, ctx)
+            assert _entries(ours) == _reference_entries(theirs), (tkw, ctx)
+            assert not any("not ported" in v.message for v in ours)
             # require raises exactly when some violation stands
             if ours:
                 with pytest.raises(tparams.CapabilityError) as err:
@@ -69,14 +81,20 @@ def test_verdicts_equal_the_reference_in_every_context(metric):
 
 
 def test_repaired_differences():
-    # 1: the item-5 knobs are structured violations, not NotImplementedError
+    # 1: the item-5 knobs are served where the reference serves them, and a
+    # filter that is no predicate is a structured violation in every context
     for kw in (dict(adaptive_wave=20), dict(probe_schedule=4),
-               dict(filter=Eq("color", "red"))):
+               dict(filter=tfilter.Eq("color", "red"))):
         p = tparams.SearchParams(**kw)
         for ctx in tparams.CONTEXTS:
-            with pytest.raises(tparams.CapabilityError,
-                               match="ROADMAP.md queue 1 item 5"):
-                p.require(ctx)
+            if ctx == "sharded" and "adaptive_wave" in kw:
+                continue
+            assert p.require(ctx) is p
+    for ctx in tparams.CONTEXTS:
+        with pytest.raises(tparams.CapabilityError,
+                           match="repro_torch.filter Predicate") as err:
+            tparams.SearchParams(filter=Eq("color", "red")).require(ctx)
+        assert err.value.violations[0].knob == "filter"
     # 2: an unknown metric raises CapabilityError (a ValueError), as in the
     # reference, with the reference's message
     with pytest.raises(tparams.CapabilityError) as ours:
@@ -89,6 +107,10 @@ def test_repaired_differences():
     for mod in (tparams, jparams):
         with pytest.raises(ValueError, match="probe_schedule"):
             mod.SearchParams(probe_schedule=-1)
+    # 4 (fault 6): expand=0 constructs in both; only the rpf+int8 search
+    # refuses it (tests/test_torch_quantized.py)
+    assert tparams.SearchParams(k=3, expand=0).to_dict() == \
+        jparams.SearchParams(k=3, expand=0).to_dict()
     with pytest.raises(ValueError, match="context"):
         tparams.SearchParams().capabilities("gpu")
 
@@ -114,12 +136,14 @@ def test_capability_error_keeps_its_structure():
                  chunk=64, n_probes=4, n_trees=5),
     dict(metric="cosine", mode="ref", tol=0.5, min_candidates=9,
          adaptive_wave=3),
-    dict(probe_schedule=8, filter=Eq("color", "red")),
+    dict(probe_schedule=8, filter="eq"),
+    dict(k=3, expand=0),
 ])
 def test_search_params_dicts_round_trip_across_packages(kw):
-    ours = tparams.SearchParams(**kw)
+    jf, tf = _filters(kw.get("filter"))
+    ours = tparams.SearchParams(**dict(kw, filter=tf))
     theirs = jparams.SearchParams.from_dict(ours.to_dict())
-    assert theirs == jparams.SearchParams(**kw)
+    assert theirs == jparams.SearchParams(**dict(kw, filter=jf))
     assert theirs.to_dict() == ours.to_dict()
     assert tparams.SearchParams.from_dict(theirs.to_dict()) == \
         tparams.SearchParams.from_dict(ours.to_dict())

@@ -275,5 +275,10 @@ def test_int8_index_carries_and_rebuilds_the_same_bits(int8_indexes):
     with pytest.raises(ValueError, match="q8 and scale"):
         convert.index_from_numpy(db, jax.device_get(jidx.forest), tspec,
                                  device="cpu")
+    # expand=0 constructs, as in the reference; the int8 search refuses
+    # its k' = 0 shortlist with a ValueError, as the reference's does
+    p = tindex.SearchParams(k=3, expand=0)
     with pytest.raises(ValueError, match="expand"):
-        tindex.SearchParams(expand=0)
+        tidx.search(q, p)
+    with pytest.raises(ValueError):
+        jidx.search(q, jindex.SearchParams(k=3, expand=0, mode="ref"))
