@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Eleven paths, each driven through the entry points a user calls, with every
+Twelve paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -81,6 +81,25 @@ version may have run):
            ``rpf`` and a ``ValueError`` on ``rpf+int8``; ``tune`` on 512
            queries choosing the same params twice (kernels A, B, the scan
            and C)
+  serve    the MNIST-784 ``rpf`` index behind ``ServingRuntime(max_batch=64,
+           slo_p99_ms=25)`` at ``SearchParams(k=10, n_probes=4)`` (its
+           ladder: P = 4, 2, 1, then 40 and 20 trees), every search launched
+           from a batcher's worker thread: the traffic model calibrated and
+           a plan made at the rated QPS of batch 64; open-loop Poisson runs
+           (``serve/loadgen.py``, the 1024 MNIST queries in turn) of 1,000
+           requests at 0.5x the rated QPS with ``degrade=False``, 1,000 and
+           5,000 at 2x with the ladder (the 5,000 must shed) and without;
+           the plan saved into the manifest and a runtime loaded from it;
+           8 queries added to the loaded index while it serves and one
+           deleted; a fleet of 2 replicas (``build_fleet``) and its draining
+           stop; ``repro_torch.launch.serve.main`` at its defaults, with
+           ``--load`` and with ``--config``; ``rpf+int8`` (expand 4, P = 4)
+           for 500 requests.  No request may be lost; every answer must be
+           bit for bit its query's row of a direct ``Index.search`` of the
+           1024 queries (under overload, at one of the ladder's rungs; on
+           the mutated index, of its new view), an added query must come
+           back first at distance 0 and a deleted id never (kernels A and
+           B, the scan on the mutated index, C on ``rpf+int8``)
 
 Phases, each printing one JSON line:
 
@@ -125,6 +144,12 @@ Phases, each printing one JSON line:
            against its plain version by the rule above; and kernels B, C, D,
            E, G and the scan at k = 129 and 256, whose first 10 columns must
            be their own k = 10 output bit for bit
+  serve    one line per served run: offered and achieved QPS, p50 / p99
+           / p999 / max ms (wall clock, from each request's scheduled
+           arrival), shed fraction, final rung, recall@10 against exact
+           k-NN, shed and recover steps, batches by rung, the launches of
+           the run; and the traffic model, warm-up seconds by rung, shed
+           depth, rated QPS and plan
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -141,7 +166,9 @@ Phases, each printing one JSON line:
   profile  device time per search by kernel and the device's idle share
            (``torch.profiler`` over 5 searches of 1024 queries), the
            mutated and compacted ``rpf`` index at 4 probes too, and the
-           knobs cell's schedule, waves and filters
+           knobs cell's schedule, waves and filters; the serve path's
+           batches of 64 at rung 0 (the worker's search alone, and 64
+           requests served through the batcher, 20 times each)
   digests  the sha256 (16 hex digits) of kernels A's, B's, C's and D's
            outputs on every case above, at the timed shapes (B's stage-2
            shortlists) and in the any-k rounds, to compare two builds' runs
@@ -155,8 +182,10 @@ and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the script exits non-zero without that line.
 """
 import collections
+import contextlib
 import ctypes
 import hashlib
+import io
 import json
 import os
 import re
@@ -479,6 +508,9 @@ def main():
     from repro_torch.kernels.fused_query_int8 import fused_gather_topk_int8
     from repro_torch.kernels.matmul_topk import (MAX_SLICES, matmul_topk,
                                                  scan_outputs)
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import (ServingRuntime, build_fleet, build_ladder,
+                                   loadgen, planner)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2087,6 +2119,291 @@ def main():
                       k=K, adaptive_wave=10, tol=0.01)),
                   ("filter brute", SearchParams(k=K, filter=p_brute)),
                   ("filter widened", SearchParams(k=K, filter=p_wide)))}})
+
+    # ---- path: serve (the batcher, the ladder, the planner, the fleet) -----
+    # The main path's MNIST-784 rpf index behind ServingRuntime(max_batch=64,
+    # slo_p99_ms=25) at the operating point SearchParams(k=10, n_probes=4).
+    # Each served run counts from zero just before it and reads just after:
+    # what launches then launches from a batcher's worker thread (or two,
+    # the fleet's).  Every answer is checked bit for bit against its row of
+    # a direct Index.search of the 1024 queries.
+    serve_p = SearchParams(k=K, n_probes=4)
+    slo_ms, serve_batch = 25.0, 64
+    true_host = true_i.cpu().numpy()
+    served_launches = collections.Counter()
+    serve_runs = {}
+
+    class Recorder:
+        """A runtime or fleet whose submitted requests are kept, in order,
+        so that each answer can be checked against its query's row."""
+
+        def __init__(self, target):
+            self.target, self.reqs = target, []
+
+        def submit(self, q):
+            req = self.target.submit(q)
+            self.reqs.append(req)
+            return req
+
+        def stats(self):
+            return self.target.stats()
+
+    def host(out):
+        return tuple(t.cpu().numpy() for t in out)
+
+    def bit_rows(results, want, rows):
+        """(n,) whether each answer equals ``want``'s row bit for bit."""
+        d = np.stack([r[0] for r in results]).view(np.int32)
+        i = np.stack([r[1] for r in results])
+        return ((i == want[1][rows]).all(1)
+                & (d == want[0][rows].view(np.int32)).all(1))
+
+    def served(fn, names=("forest_traverse", "fused_gather_topk")):
+        out, launches, ref_calls = counted(torch, counters, fn)
+        require(launches, ref_calls, names, "serve")
+        served_launches.update(launches)
+        return out, launches
+
+    def open_loop(name, target, qps, n, want, names=("forest_traverse",
+                                                      "fused_gather_topk"),
+                  seed=1):
+        """``n`` open-loop requests at ``qps`` (query j % 1024), none lost;
+        returns the report, the answers and the rows each answer equals
+        bit for bit in ``want`` (a list of direct searches)."""
+        rec = Recorder(target)
+        rep, launches = served(lambda: loadgen.run_open_loop(
+            rec, q_np, qps, n_requests=n, seed=seed, true_ids=true_host),
+            names)
+        check(rep["n_ok"] == n and rep["n_failed"] == 0
+              and rep["n_timeout"] == 0, f"serve {name}: requests lost {rep}")
+        results = [r.result for r in rec.reqs]
+        rows = np.arange(n) % cfgmod.QUERY_BATCH
+        match = np.stack([bit_rows(results, w, rows) for w in want])
+        st = target.stats()
+        serve_runs[name] = {
+            "offered_qps": rep["offered_qps"],
+            "achieved_qps": rep["achieved_qps"], "requests": n,
+            **{key: rep[key] for key in ("p50_ms", "p99_ms", "p999_ms",
+                                         "max_ms", "dispatch_lag_ms")},
+            "shed_fraction": rep.get("shed_fraction"),
+            "rung_final": rep.get("rung_final"),
+            "recall_at_10": rep["recall_vs_oracle"],
+            "shed_steps": st.get("shed_steps"),
+            "recover_steps": st.get("recover_steps"),
+            "batches_by_rung": st.get("batches_by_rung"),
+            "depth_peak": st.get("batcher", {}).get("depth_peak"),
+            "bitwise_rows_by_rung": match.sum(1).tolist(),
+            "launches": launches}
+        emit({"phase": "serve", "run": name, "card": smi,
+              **serve_runs[name]})
+        return rep, results, match, st
+
+    # 1. the operating point, its ladder, the traffic model and the plan
+    index.tuned_params = serve_p
+    def stand_up():
+        t0 = time.perf_counter()
+        runtime = ServingRuntime(index, max_batch=serve_batch,
+                                 slo_p99_ms=slo_ms)
+        return runtime, time.perf_counter() - t0
+
+    (rt, standup_s), standup_launches, ref_calls = counted(
+        torch, counters, stand_up)
+    require(standup_launches, ref_calls, ("forest_traverse",
+                                          "fused_gather_topk"),
+            "serve stand-up")
+    check(rt.params == serve_p and rt.ladder == build_ladder(
+        serve_p, cfgmod.CONFIG.n_trees), f"serve: ladder {rt.ladder}")
+    model = rt.calibrate(q_np[:32])
+    rated = planner.rated_qps(model, slo_ms, serve_batch)
+    check(rated > 0, f"serve: no in-SLO rate at batch 64: {model}")
+    plan = planner.plan(model, qps=rated, slo_p99_ms=slo_ms,
+                        recall_target=cells["rpf"][4]["recall_at_10"])
+    direct = [host(index.search(queries, p)) for p in rt.ladder]
+    emit({"phase": "serve", "run": "plan", "card": smi,
+          "ladder": [{"n_probes": p.n_probes, "n_trees": p.n_trees}
+                     for p in rt.ladder],
+          "standup_s": standup_s, "standup_launches": standup_launches,
+          "warmup_s_by_rung": rt.stats()["service_s_by_rung"],
+          "shed_depth": rt.shed_depth, "traffic_model": model.to_dict(),
+          "rated_qps_at_batch_64": rated, "plan": plan.to_dict()})
+
+    # 2. degrade=False at 0.5x the rated QPS: the direct search, bit for bit
+    rt0 = ServingRuntime(index, max_batch=serve_batch, slo_p99_ms=slo_ms,
+                         degrade=False)
+    _, _, match, _ = open_loop("rung 0, 0.5x rated", rt0, 0.5 * rated, 1000,
+                               direct[:1])
+    check(bool(match[0].all()), f"serve: {int((~match[0]).sum())} of 1000 "
+          f"answers differ from the direct search")
+
+    # 3. degrade=True at 2x the rated QPS: nothing lost, every answer one
+    # rung's bit for bit; 1,000 requests (~30 ms of arrivals) end before the
+    # queue reaches the shed depth, so the shed gate runs 5,000 (and a
+    # degrade=False control at the same rate beside each)
+    for n in (1000, 5000):
+        rt_d = rt if n == 1000 else ServingRuntime(
+            index, max_batch=serve_batch, slo_p99_ms=slo_ms)
+        _, _, match, st = open_loop(f"ladder, 2x rated, {n}", rt_d,
+                                    2 * rated, n, direct)
+        check(bool(match.any(0).all()), f"serve: an overload answer is no "
+              f"rung's ({n} requests)")
+        check(sum(st["batches_by_rung"]) == st["batcher"]["batches"]
+              and st["requests_total"] == n, f"serve: counters {st}")
+        if n == 5000:
+            check(st["shed_steps"] > 0, f"serve: 2x rated never shed: {st}")
+        rt_d.stop()
+        rt_c = ServingRuntime(index, max_batch=serve_batch,
+                              slo_p99_ms=slo_ms, degrade=False)
+        open_loop(f"rung 0 control, 2x rated, {n}", rt_c, 2 * rated, n,
+                  direct[:1])
+        rt_c.stop()
+
+    # the device's idle share while serving batches of 64 at rung 0: the
+    # worker's search alone, and closed loops of 64 requests served
+    def idle_share(fn, n=20):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        return {"wall_ms_per_batch": wall_ms / n,
+                "device_ms_per_batch": sum(busy) / n,
+                "device_idle_share": 1 - sum(busy) / wall_ms,
+                "device_events_per_batch": len(busy) / n}
+
+    def serve_64():
+        reqs = [rt0.submit(q) for q in q_np[:serve_batch]]
+        check(all(r.event.wait(60) and r.error is None for r in reqs),
+              "serve: a closed-loop request failed")
+
+    q64 = q_np[:serve_batch]
+    emit({"phase": "profile", "cell": "rpf_mnist784 / serve", "batch":
+          serve_batch, "card": smi, "rung": 0,
+          "search_alone": idle_share(lambda: rt0._search(q64, 0)),
+          "served": idle_share(serve_64)})
+    rt0.stop()
+
+    with tempfile.TemporaryDirectory() as serve_tmp:
+        # 5. the manifest: plan and traffic model saved, a runtime loaded
+        # from it (the shed depth set past any queue, so that every answer
+        # is rung 0's)
+        index.serving_plan = {"plan": plan.to_dict(),
+                              "traffic_model": model.to_dict()}
+        man = os.path.join(serve_tmp, "idx")
+        index.save(man)
+        rt5 = ServingRuntime.load(man, shed_depth=1 << 30)
+        check(rt5.max_batch == plan.batch and rt5.slo_p99_ms == slo_ms
+              and rt5.ladder == rt.ladder and rt5.params == serve_p,
+              f"serve: the loaded runtime is not the plan's: batch "
+              f"{rt5.max_batch}, slo {rt5.slo_p99_ms}")
+        _, _, match, _ = open_loop("loaded manifest, 0.5x rated", rt5,
+                                   0.5 * rated, 1000, direct[:1])
+        check(bool(match[0].all()), "serve: the loaded runtime answers "
+              "otherwise")
+
+        # 4. serving while mutating the loaded index: 8 queries added (their
+        # ids come first, at distance 0), the first deleted (never served
+        # again), then 1,000 requests bitwise a direct search of the view
+        live = rt5.index
+        n_base = live.n_rows
+        new_ids = [live.add(x) for x in q_np[:8]]
+        check(new_ids == list(range(n_base, n_base + 8)), f"ids {new_ids}")
+
+        def first_answers():
+            return [rt5(x, timeout=60.0) for x in q_np[:8]]
+
+        after_add, _ = served(first_answers, ("forest_traverse",
+                                              "fused_gather_topk",
+                                              "fused_scan"))
+        for gid, (d, i) in zip(new_ids, after_add):
+            check(int(i[0]) == gid and float(d[0]) == 0.0,
+                  f"serve: an added query came back as {i[:2]}, {d[:2]}")
+        live.delete(new_ids[0])
+        after_del, _ = served(first_answers, ("forest_traverse",
+                                              "fused_gather_topk",
+                                              "fused_scan"))
+        view = host(live.search(queries, serve_p))
+        _, results, match, _ = open_loop(
+            "mutated, 0.5x rated", rt5, 0.5 * rated, 1000, [view],
+            ("forest_traverse", "fused_gather_topk", "fused_scan"))
+        check(bool(match[0].all()), "serve: answers on the mutated index "
+              "differ from a direct search of its view")
+        check(all(new_ids[0] not in i for _, i in after_del + results),
+              "serve: a deleted id was served")
+        check(all(int(i[0]) == g for g, (_, i) in zip(new_ids[1:],
+                                                       after_del[1:])),
+              "serve: an added id lost its place after the delete")
+        rt5.stop()
+        mutate_stats = live.stats()
+        emit({"phase": "serve", "run": "mutate", "card": smi, "added": 8,
+              "deleted": 1, "n_delta": mutate_stats["n_delta"],
+              "n_tombstones": mutate_stats["n_tombstones"],
+              "added_first_at_distance_0": True, "deleted_never_served":
+              True, "bitwise_view": True})
+        del live, rt5
+
+        # 6. a fleet of 2 replicas (their stop drains), then the launcher
+        fleet_cfg = {"serving": {"slo_p99_ms": slo_ms, "max_batch":
+                                 serve_batch, "degrade": False},
+                     "autoscale": {"enabled": True, "qps": rated,
+                                   "min_replicas": 2, "max_replicas": 2}}
+        handle = build_fleet(fleet_cfg, index=index, model=model)
+        check(handle.fleet.n_replicas == 2, "serve: the fleet is not 2")
+        _, _, match, _ = open_loop("fleet of 2, 1x rated", handle.fleet,
+                                   rated, 1000, direct[:1])
+        check(bool(match[0].all()), "serve: the fleet answers otherwise")
+        burst = Recorder(handle.fleet)
+        replicas = handle.fleet.replicas
+        for x in q_np[:512]:
+            burst.submit(x)
+        handle.stop()                 # drains every queued request
+        check(all(r.event.is_set() and r.error is None for r in burst.reqs),
+              "serve: the fleet's stop dropped a request")
+        check(bool(bit_rows([r.result for r in burst.reqs], direct[0],
+                            np.arange(len(burst.reqs))).all()),
+              "serve: a drained answer differs")
+        emit({"phase": "serve", "run": "fleet stop", "card": smi,
+              "drained": 512, "requests_by_replica": [
+                  r.stats()["requests_total"] for r in replicas],
+              "autoscaler": handle.autoscaler.stats()})
+
+        fleet_yml = os.path.join(serve_tmp, "fleet.yml")
+        with open(fleet_yml, "w") as f:
+            f.write(f"index: {man}\nserving:\n  slo_p99_ms: {slo_ms}\n"
+                    f"  max_batch: {serve_batch}\nautoscale:\n"
+                    f"  enabled: true\n  qps: {rated}\n  max_replicas: 2\n")
+        launched = {}
+        for tag, argv in (("defaults", []), ("load", ["--load", man]),
+                          ("config", ["--config", fleet_yml])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                (rep, launches) = served(lambda: launcher.main(argv))
+            check(rep["n_ok"] == rep["n_requests"] == 1000
+                  and 0.0 < rep["recall_vs_oracle"] <= 1.0,
+                  f"serve: the launcher's {tag} run: {rep}")
+            launched[tag] = {"report": rep, "launches": launches,
+                             "printed": out.getvalue().splitlines()[-4:]}
+        emit({"phase": "serve", "run": "launcher", "card": smi, **launched})
+
+    # 7. rpf+int8 at expand 4, P = 4: kernels A, C and B from the worker
+    p8_serve = SearchParams(k=K, n_probes=4, expand=EXPAND)
+    rt7 = ServingRuntime(index8, params=p8_serve, max_batch=serve_batch,
+                         slo_p99_ms=slo_ms, degrade=False)
+    _, _, match, _ = open_loop(
+        "rpf+int8, 0.5x rated", rt7, 0.5 * rated, 500,
+        [host(index8.search(queries, p8_serve))],
+        ("forest_traverse", "fused_gather_topk_int8", "fused_gather_topk"))
+    check(bool(match[0].all()), "serve: rpf+int8 answers otherwise")
+    rt7.stop()
+    index.tuned_params = None
+    index.serving_plan = None
+    launches_by_path["serve"] = dict(served_launches)
+    emit({"phase": "serve", "run": "launches", "card": smi,
+          "launches": dict(served_launches), "ref_calls": 0})
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.
