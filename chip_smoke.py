@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Twelve paths, each driven through the entry points a user calls, with every
+Thirteen paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -100,6 +100,27 @@ version may have run):
            the mutated index, of its new view), an added query must come
            back first at distance 0 and a deleted id never (kernels A and
            B, the scan on the mutated index, C on ``rpf+int8``)
+  sharded  ``ShardedIndex`` over the main path's index on ``Mesh((4, 2))``:
+           4 DB shards of 15,000 rows, each shard's 80 trees split over 2
+           tree shards, so 8 cells of 40 trees run in turn on the card;
+           1024 queries at k = 10, P = 1 and 4, one A and one B a cell a
+           search.  Checks: the answers against the same mesh in
+           ``mode="ref"`` by the compare rule; each cell bitwise a second
+           build; a (1, 1) mesh drawing as the index's own build (its one
+           cell the index's forest) giving the local search's distances
+           bit for bit, ids equal at every untied rank; a one-rank NCCL
+           group bit for bit the group-less mesh; ``probe_schedule`` 4 at
+           tol 0 bitwise P = 4; ``adaptive_wave`` refused (strict) and
+           stripped and counted (not strict); on the ``knobs`` metadata
+           index ``Eq("bucket", 7)`` bitwise the local filtered search and
+           ``Eq("label", 3)`` (widened) only matching rows, none twice;
+           after deleting every 30th id, none surfacing; ``tune_sharded``
+           (512 queries, 2 shards, a (2, 1) mesh) choosing the same params
+           twice; a mesh ``ServingRuntime(max_batch=64)`` at P = 4 serving
+           1,000 open-loop requests at 0.5x its own rated QPS, and a fleet
+           with a ``mesh:`` section 200, every answer bit for bit its
+           query's row of a direct ``ShardedIndex.search`` (kernels A and
+           B, and the scan in the brute regime)
 
 Phases, each printing one JSON line:
 
@@ -150,6 +171,7 @@ Phases, each printing one JSON line:
            k-NN, shed and recover steps, batches by rung, the launches of
            the run; and the traffic model, warm-up seconds by rung, shed
            depth, rated QPS and plan
+  sharded  the sharded path's build, its checks, its served runs and plan
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -162,17 +184,20 @@ Phases, each printing one JSON line:
            ``bruteforce`` beside theirs; the knobs cell: fixed P = 1, 2, 4,
            the schedule (cap 4, tol 0.01) with its mean probes, the waves
            (10 trees, tol 0.01) with the trees used, both filter regimes
-           (recall against exact k-NN over the matching rows)
+           (recall against exact k-NN over the matching rows); the
+           sharded search at P = 1 and 4 beside the local index (local,
+           sharded, sharded, local), its schedule and its served run
   profile  device time per search by kernel and the device's idle share
            (``torch.profiler`` over 5 searches of 1024 queries), the
            mutated and compacted ``rpf`` index at 4 probes too, and the
            knobs cell's schedule, waves and filters; the serve path's
            batches of 64 at rung 0 (the worker's search alone, and 64
-           requests served through the batcher, 20 times each)
+           requests served through the batcher, 20 times each); the
+           sharded search at P = 1 and 4 and the mesh runtime's batch of 64
   digests  the sha256 (16 hex digits) of kernels A's, B's, C's and D's
            outputs on every case above, at the timed shapes (B's stage-2
            shortlists) and in the any-k rounds, to compare two builds' runs
-           bit for bit
+           bit for bit; a second line for the sharded path's answers
   done     the script's wall time
 
 then the kernels line (each kernel's launches, time, plain time and bound;
@@ -478,6 +503,7 @@ def main():
                if "--depth-cap" in sys.argv else None)
     import numpy as np
     import torch
+    import torch.distributed as dist
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; none is available")
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -485,17 +511,20 @@ def main():
     from repro_torch.configs import rpf_iss595 as isscfg
     from repro_torch.configs import rpf_mnist784 as cfgmod
     from repro_torch.core.distances import METRICS
-    from repro_torch.core.forest import Forest, ForestConfig
+    from repro_torch.core.forest import Forest, ForestConfig, generator_draws
     from repro_torch.core.knn import exact_knn
     from repro_torch.core.pipeline import candidates
     from repro_torch.core.quantized import quantize_db
     from repro_torch.core.search import (mask_duplicates, merge_topk_pairs,
                                          recall_at_k)
+    from repro_torch.core.sharded_index import (CellDraws, Mesh, ShardedIndex,
+                                                build_sharded_index)
     from repro_torch.data.synthetic import iss_like, mnist_like
     from repro_torch.filter import Eq
     from repro_torch.filter.predicate import use_brute_force, widen_params
-    from repro_torch.index import (IndexSpec, SearchParams, build_index,
-                                   load_index, tune, tune_report)
+    from repro_torch.index import (CapabilityError, IndexSpec, SearchParams,
+                                   build_index, load_index, tune, tune_report,
+                                   tune_sharded)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.chi2_topk import chi2_topk
     from repro_torch.kernels.common import LAUNCHES, REF_CALLS
@@ -2166,10 +2195,11 @@ def main():
 
     def open_loop(name, target, qps, n, want, names=("forest_traverse",
                                                       "fused_gather_topk"),
-                  seed=1):
+                  seed=1, phase="serve"):
         """``n`` open-loop requests at ``qps`` (query j % 1024), none lost;
         returns the report, the answers and the rows each answer equals
-        bit for bit in ``want`` (a list of direct searches)."""
+        bit for bit in ``want`` (a list of direct searches); its line goes
+        under ``phase``."""
         rec = Recorder(target)
         rep, launches = served(lambda: loadgen.run_open_loop(
             rec, q_np, qps, n_requests=n, seed=seed, true_ids=true_host),
@@ -2194,7 +2224,7 @@ def main():
             "depth_peak": st.get("batcher", {}).get("depth_peak"),
             "bitwise_rows_by_rung": match.sum(1).tolist(),
             "launches": launches}
-        emit({"phase": "serve", "run": name, "card": smi,
+        emit({"phase": phase, "run": name, "card": smi,
               **serve_runs[name]})
         return rep, results, match, st
 
@@ -2404,6 +2434,286 @@ def main():
     launches_by_path["serve"] = dict(served_launches)
     emit({"phase": "serve", "run": "launches", "card": smi,
           "launches": dict(served_launches), "ref_calls": 0})
+
+    # ---- path: sharded (the index over a mesh of cells on one card) --------
+    # ShardedIndex over the main path's MNIST-784 index on a (4, 2) mesh: 4
+    # DB shards of 15,000 rows, each with its 80 trees split over 2 tree
+    # shards, so 8 cells of 40 trees, run one after another on this card;
+    # every search launches one A and one B a cell, then merges the cells'
+    # (B, k) lists.  Its gates: the compare rule against the same mesh in
+    # mode="ref"; each cell bitwise a second build; a (1, 1) mesh drawing
+    # as the index's own build bitwise the local search; a one-rank NCCL
+    # group bitwise the group-less mesh; deletes, filters, schedules,
+    # admission, tune_sharded, a mesh ServingRuntime and a mesh fleet
+    sh_mesh = Mesh((4, 2), device=dev)
+    sh_cells = 8
+
+    def drive_sharded():
+        t0 = time.perf_counter()
+        sx = ShardedIndex(index, sh_mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        return sx, build_s, {p: sx.search(queries, SearchParams(
+            k=K, n_probes=p)) for p in PROBES}
+
+    (sx, sx_build_s, sx_res), launches, ref_calls = counted(
+        torch, counters, drive_sharded)
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk"),
+            "sharded")
+    check(launches.get("forest_traverse") == launches.get("fused_gather_topk")
+          == sh_cells * len(PROBES),
+          f"sharded: not one A and one B a cell a search: {launches}")
+    sh_launches = collections.Counter(launches)
+    local_res = {p: index.search(queries, SearchParams(k=K, n_probes=p))
+                 for p in PROBES}
+    emit({"phase": "sharded", "mesh": sh_mesh.shape, "cells": sh_cells,
+          "rows_per_shard": sx._forest.n_local,
+          "trees_per_cell": sx._forest.trees_per_cell,
+          "mesh_build_s": sx_build_s, "searches": len(sx_res),
+          "launches": launches, "ref_calls": ref_calls})
+    sh_err = 0.0
+    for p, got in sx_res.items():
+        want = sx.search(queries, SearchParams(k=K + 1, n_probes=p,
+                                               mode="ref"))
+        sh_err = max(sh_err, compare_topk(torch, got, want, K))
+        check_scores(torch, METRICS["l2"], queries, db, got)
+    emit({"phase": "compare", "path": "sharded", "cases": len(sx_res),
+          "max_abs_err": sh_err})
+
+    # 1. each cell bitwise a second build under the same seed
+    again = build_sharded_index(index.seed, sx._db, index.spec.forest,
+                                sh_mesh)
+    check(all(c1 == c2 and all(torch.equal(a, b) for a, b in zip(f1, f2))
+              for (c1, f1), (c2, f2) in zip(sx._forest.cells, again.cells)),
+          "sharded: a second build under the same seed differs")
+    del again
+    # 2. a (1, 1) mesh drawing as the index's own build: its one cell is the
+    # index's forest and its distances the local search's, bit for bit
+    own = CellDraws(lambda di, ti, n: generator_draws(
+        torch.Generator(device=dev).manual_seed(index.seed),
+        spec.forest.resolved(n), db.shape[1], dev))
+    sx1 = ShardedIndex(index, Mesh((1, 1), device=dev), draws=own)
+    check(all(torch.equal(a, b) for a, b in zip(sx1._forest.cells[0][1],
+                                                forest)),
+          "sharded (1, 1): its cell is not the index's forest")
+    one_cell = {}
+    for p in PROBES:
+        (sd, si) = sx1.search(queries, SearchParams(k=K, n_probes=p))
+        ld, li = local_res[p]
+        check(torch.equal(sd.view(torch.int32), ld.view(torch.int32)),
+              f"sharded (1, 1): distances differ from the local search, "
+              f"P = {p}")
+        untied = torch.ones_like(sd, dtype=torch.bool)
+        untied[:, 1:] &= sd[:, 1:] != sd[:, :-1]
+        untied[:, :-1] &= sd[:, :-1] != sd[:, 1:]
+        check(torch.equal(si[untied], li[untied]),
+              f"sharded (1, 1): ids differ at an untied rank, P = {p}")
+        one_cell[p] = {"rows_ids_equal": int((si == li).all(1).sum())}
+    del sx1
+    # 3. a one-rank NCCL group: the merge's all-gather through NCCL, bit for
+    # bit the group-less mesh (a failed init fails the run)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        nccl_mesh = Mesh((4, 2), device=dev, group=dist.group.WORLD)
+        sxn = ShardedIndex(index, nccl_mesh)
+        nccl_res, launches, ref_calls = counted(torch, counters, lambda: {
+            p: sxn.search(queries, SearchParams(k=K, n_probes=p))
+            for p in PROBES})
+        require(launches, ref_calls, ("forest_traverse",
+                                      "fused_gather_topk"), "sharded")
+        sh_launches.update(launches)
+        for p in PROBES:
+            check(bitwise(nccl_res[p], sx_res[p]),
+                  f"sharded: the NCCL group answers otherwise, P = {p}")
+        nccl_backend = dist.get_backend(dist.group.WORLD)
+        del sxn
+    finally:
+        dist.destroy_process_group()
+    # 4. schedule at tol 0 bitwise the fixed cap; 5. admission
+    sched, launches, ref_calls = counted(torch, counters, lambda: sx.search(
+        queries, SearchParams(k=K, probe_schedule=4, tol=0.0)))
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk"),
+            "sharded")
+    sh_launches.update(launches)
+    check(bitwise(sched, sx_res[4]),
+          "sharded: the schedule at tol 0 differs from P = 4")
+    wavy = SearchParams(k=K, adaptive_wave=10)
+    try:
+        sx.search(queries, wavy)
+        raise RuntimeError("check failed: strict ShardedIndex served "
+                           "adaptive_wave")
+    except CapabilityError as err:
+        check([v.knob for v in err.violations] == ["adaptive_wave"],
+              f"sharded: refused {err}")
+    sx.strict = False
+    stripped = sx.search(queries, wavy)
+    sx.strict = True
+    check(bitwise(stripped, sx_res[1]) and
+          sx.stats()["counters"]["stripped_knobs"] == 1,
+          "sharded: the stripped search is not the P = 1 search")
+    # 6. filters on the knobs path's metadata index, then deletes
+    kidx = knobs["rpf"][0]
+
+    def drive_filtered():
+        sxk = ShardedIndex(kidx, sh_mesh)
+        return sxk, {tag: sxk.search(queries, SearchParams(k=K, filter=pred))
+                     for tag, pred in (("brute", p_brute),
+                                       ("widened", p_wide))}
+
+    (sxk, fres), launches, ref_calls = counted(torch, counters,
+                                               drive_filtered)
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk",
+                                  "fused_scan"), "sharded")
+    sh_launches.update(launches)
+    check(bitwise(fres["brute"], kidx.search(queries, SearchParams(
+        k=K, filter=p_brute))), "sharded: the brute regime differs from the "
+        "local filtered search")
+    wi = fres["widened"][1]
+    lab = torch.from_numpy(db_labels).to(dev)
+    check(bool((lab[wi.clamp_min(0).long()][wi >= 0] == 3).all()),
+          "sharded: the widened regime returned a row of another label")
+    srt = wi.sort(dim=1)[0]
+    check(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()),
+          "sharded: an id twice in a row")
+    filter_counters = sxk.stats()["counters"]
+    del sxk
+    dead = torch.arange(0, cfgmod.N_DB, 30, device=dev)
+    kidx.delete(dead.tolist())
+
+    def drive_deleted():
+        sxd = ShardedIndex(kidx, sh_mesh)
+        return sxd, {p: sxd.search(queries, SearchParams(k=K, n_probes=p))
+                     for p in PROBES}
+
+    (sxd, del_res), launches, ref_calls = counted(torch, counters,
+                                                  drive_deleted)
+    require(launches, ref_calls, ("forest_traverse", "fused_gather_topk"),
+            "sharded")
+    sh_launches.update(launches)
+    for p, (_, ids) in del_res.items():
+        check(not bool(torch.isin(ids, dead.int()).any()),
+              f"sharded: a deleted id surfaced, P = {p}")
+    deleted_stats = sxd.stats()
+    del sxd
+    # 7. tune_sharded twice on 512 queries, 2 shards, checked on a (2, 1)
+    # mesh
+    t0 = time.perf_counter()
+    (tuned, launches, ref_calls) = counted(torch, counters, lambda: [
+        tune_sharded(index, tune_q, n_shards=2, mesh=Mesh((2, 1), device=dev),
+                     persist=False) for _ in range(2)])
+    tune_sharded_s = (time.perf_counter() - t0) / 2
+    check(sum(ref_calls.values()) == 0, f"plain versions ran in "
+          f"tune_sharded: {ref_calls}")
+    sh_launches.update(launches)
+    (t_params, t_report), (t_params2, _) = tuned
+    check(t_params == t_params2, "tune_sharded chose other params on the "
+          "same index and queries")
+    check("mesh_recall" in t_report[-1], f"tune_sharded: {t_report[-1]}")
+    emit({"phase": "sharded", "checks": {
+        "cells_bitwise_second_build": True, "one_cell_mesh_bitwise_local":
+        one_cell, "nccl_backend": nccl_backend, "nccl_bitwise": True,
+        "schedule_tol0_bitwise_fixed_cap": True,
+        "adaptive_wave_strict_refused": True, "stripped": True,
+        "brute_bitwise_local": True, "filter_counters": filter_counters,
+        "deleted": len(dead), "deleted_never_surfaced": True,
+        "deleted_stats": deleted_stats},
+        "tune_sharded": {"params": [p.to_dict() for p in t_params],
+                         "seconds": tune_sharded_s, "rows": [
+                             {k_: (v.to_dict() if isinstance(
+                                 v, SearchParams) else v)
+                              for k_, v in row.items()}
+                             for row in t_report]}})
+
+    # 8. a mesh ServingRuntime at P = 4 at 0.5x its own rated QPS, and a
+    # fleet with a mesh section: every answer its query's row of a direct
+    # ShardedIndex.search, bit for bit
+    sh_serve_p = SearchParams(k=K, n_probes=4)
+    rt_s = ServingRuntime(index, params=sh_serve_p, mesh=sh_mesh,
+                          max_batch=serve_batch, slo_p99_ms=slo_ms,
+                          degrade=False)
+    model_s = rt_s.calibrate(q_np[:32])
+    rated_s = planner.rated_qps(model_s, slo_ms, serve_batch)
+    check(rated_s > 0, f"sharded serve: no in-SLO rate: {model_s}")
+    want_s = host(rt_s._sharded.search(queries, sh_serve_p))
+    rep_s, _, match, _ = open_loop("sharded, 0.5x rated", rt_s,
+                                   0.5 * rated_s, 1000, [want_s],
+                                   phase="sharded")
+    check(bool(match[0].all()), f"sharded serve: {int((~match[0]).sum())} "
+          f"of 1000 answers differ from the direct search")
+    sh_launches.update(serve_runs["sharded, 0.5x rated"]["launches"])
+    sh_serve_idle = idle_share(lambda: rt_s._search(q64, 0))
+    rt_s.stop()
+    handle = build_fleet({"serving": {"slo_p99_ms": slo_ms,
+                                      "max_batch": serve_batch,
+                                      "degrade": False},
+                          "mesh": {"shape": [4, 2],
+                                   "axes": ["data", "model"]}},
+                         index=index, model=model_s)
+    replica = handle.fleet.replicas[0]
+    check(replica.stats()["sharded"], "sharded fleet: a local replica")
+    want_f = host(replica._sharded.search(queries, replica.ladder[0]))
+    _, _, match, _ = open_loop("sharded fleet, 0.5x rated", handle.fleet,
+                               0.5 * rated_s, 200, [want_f], phase="sharded")
+    check(bool(match[0].all()), "sharded fleet: answers differ")
+    sh_launches.update(serve_runs["sharded fleet, 0.5x rated"]["launches"])
+    handle.stop()
+    del handle, replica
+    emit({"phase": "sharded", "run": "plan", "card": smi,
+          "traffic_model": model_s.to_dict(),
+          "rated_qps_at_batch_64": rated_s,
+          "warmup_s_by_rung": rt_s.stats()["service_s_by_rung"]})
+
+    # timing: the sharded search beside the local index in one call (local,
+    # sharded, sharded, local), recall against exact k-NN
+    sh_cell = {}
+    for p in PROBES:
+        params = SearchParams(k=K, n_probes=p)
+        t_local, t_mesh = [], []
+        for times, idx in ((t_local, index), (t_mesh, sx), (t_mesh, sx),
+                           (t_local, index)):
+            times.append(time_ms(torch, lambda: idx.search(queries, params),
+                                 25))
+        _, ids = sx_res[p]
+        sh_cell[p] = {"ms_per_batch": t_mesh, "local_ms_per_batch": t_local,
+                      "qps": cfgmod.QUERY_BATCH / min(t_mesh) * 1e3,
+                      "recall_at_1": recall_at_k(ids[:, :1], true_i[:, :1]),
+                      "recall_at_10": recall_at_k(ids, true_i),
+                      "local_recall_at_1": cells["rpf"][p]["recall_at_1"],
+                      "local_recall_at_10": cells["rpf"][p]["recall_at_10"],
+                      "launches_per_search": {"forest_traverse": sh_cells,
+                                              "fused_gather_topk": sh_cells},
+                      "candidate_slots": sh_cells * sx._forest.trees_per_cell
+                      * p * sx._forest.cfg.leaf_pad}
+    sched_p = SearchParams(k=K, probe_schedule=4, tol=0.01)
+    before = dict(sx.stats()["counters"])
+    _, sched_ids = sx.search(queries, sched_p)
+    after = sx.stats()["counters"]
+    emit({"phase": "timing", "cell": "rpf_mnist784 / sharded",
+          "batch": cfgmod.QUERY_BATCH, "k": K, "card": smi,
+          "mesh": sh_mesh.shape, "mesh_build_s": sx_build_s,
+          "index_build_s": index_build_s, "n_probes": sh_cell,
+          "schedule cap 4 tol 0.01": {
+              "ms_per_batch": time_ms(torch, lambda: sx.search(
+                  queries, sched_p), 10),
+              "mean_probes": (after["probes_processed"]
+                              - before["probes_processed"])
+              / cfgmod.QUERY_BATCH,
+              "recall_at_10": recall_at_k(sched_ids, true_i)},
+          "served": {key: rep_s[key] for key in (
+              "offered_qps", "achieved_qps", "p50_ms", "p99_ms",
+              "p999_ms")}})
+    emit({"phase": "profile", "cell": "rpf_mnist784 / sharded",
+          "batch": cfgmod.QUERY_BATCH, "card": smi, "n_probes": {
+              p: breakdown(sx, queries, SearchParams(k=K, n_probes=p))
+              for p in PROBES},
+          "served_batch_64_search_alone": sh_serve_idle})
+    emit({"phase": "digests", "path": "sharded", "sha256_16": {
+        **{f"sharded P={p} 1024": digest(sx_res[p]) for p in PROBES},
+        **{f"local P={p} 1024": digest(local_res[p]) for p in PROBES},
+        **{f"deleted P={p} 1024": digest(del_res[p]) for p in PROBES}}})
+    launches_by_path["sharded"] = dict(sh_launches)
+    del sx
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

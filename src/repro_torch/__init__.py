@@ -8,8 +8,11 @@ on hand-written CUDA kernels for Hopper (``csrc/``), each with a plain
 PyTorch version beside it.
 
 Entry points (``build_index``, ``build_forest``, ``fused_query``,
-``serve.ServingRuntime.load``, ``python -m repro_torch.launch.serve``) run
-on ``cuda`` unless the caller passes ``device="cpu"``.
+``core.sharded_index.Mesh`` and ``ShardedIndex`` -- the index split over a
+mesh of (DB shard, tree shard) cells, in one process or over a
+``torch.distributed`` group -- ``serve.ServingRuntime.load``, ``python -m
+repro_torch.launch.serve``) run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 from repro_torch.device import resolve_device
 

@@ -24,9 +24,10 @@ measured mean candidate count.  Adaptive entries are charged the trees
 they used on the sample and scheduled entries the mean probes they
 processed, on a one-segment index.
 
-The reference's ``tune_sharded`` waits for the sharded index (ROADMAP.md
-queue 1 item 8): its per-shard builds draw from the sharded index's key
-stream.
+``tune_sharded`` tunes each DB shard of a sharded deployment
+(``core/sharded_index.py``) on its own rows: shard ``s`` builds from
+``seal_seed(index.seed, s)`` (the reference's ``fold_in(index.key, s)``),
+or from injected draws.
 """
 from __future__ import annotations
 
@@ -37,9 +38,10 @@ import torch
 
 from repro_torch.core.knn import exact_knn
 from repro_torch.core.schedule import probe_widths
+from repro_torch.index.api import build_index, seal_seed
 from repro_torch.index.params import SearchParams
 
-__all__ = ["tune", "tune_report"]
+__all__ = ["tune", "tune_report", "tune_sharded"]
 
 
 def _recall(pred_ids: np.ndarray, true_ids: np.ndarray) -> float:
@@ -246,3 +248,124 @@ def tune(index, queries, target_recall: float = 0.95, k: int = 10,
                             expand_grid=expand_grid,
                             schedule_grid=schedule_grid, persist=persist)
     return params
+
+
+# ---------------------------------------------------------------------------
+# distributed tuning: measure on the mesh partitioning, not one host
+# ---------------------------------------------------------------------------
+
+
+def _shard_bounds(n: int, n_shards: int) -> list[tuple[int, int]]:
+    """Row ranges of each DB shard: contiguous and even, the last shard
+    taking the remainder when ``n_shards`` does not divide ``n``."""
+    n_local = n // n_shards
+    return [(s * n_local, (s + 1) * n_local if s < n_shards - 1 else n)
+            for s in range(n_shards)]
+
+
+def tune_sharded(index, queries, n_shards: int, target_recall: float = 0.95,
+                 k: int = 10, metric: str = "l2", mode: str = "auto",
+                 probe_grid: Iterable[int] = (1, 2, 4, 8),
+                 mesh=None, db_axes: Sequence[str] = ("data",),
+                 tree_axis: str = "model", persist: bool = True, draws=None
+                 ) -> tuple[list[SearchParams], list[dict]]:
+    """Per-shard tuned operating points, measured on the mesh partitioning.
+
+    A true neighbour is found iff the shard that owns it surfaces it
+    locally, so global recall decomposes over the partition:
+
+        recall = sum_s |found_s & owned_s| / |true neighbours|
+
+    For each shard ``s`` (``_shard_bounds`` of the live rows) this builds
+    the shard's own index over its rows and walks ``n_probes`` over
+    ``probe_grid`` (the sharded-legal axis) in ascending order, keeping
+    the first point whose owned-neighbour recall clears ``target_recall``
+    (else the last).  Shard ``s`` draws from ``seal_seed(index.seed, s)``,
+    or from ``draws(s, n_rows)`` (a ``SegmentDraws``; not the index's own:
+    its sid 0 is the first build's stream, not shard 0's).
+
+    ``mesh`` (a ``core.sharded_index.Mesh``) also validates the merged
+    result: the per-shard points collapse to the uniform operating point
+    (``serve.runtime.uniform_shard_params``), a sharded index over the
+    live rows answers the queries, and the final report row holds its
+    ``mesh_recall``.  Returns ``(shard_params, report)``; ``persist``
+    stores ``index.shard_params`` and, when the index has no tuned point,
+    the uniform one as ``tuned_params``.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    q = torch.from_numpy(_host_queries(queries)).to(index.device)
+    gids, rows = index.live_points()
+    if rows.shape[0] < n_shards:
+        raise ValueError(f"cannot split {rows.shape[0]} live rows into "
+                         f"{n_shards} shards")
+    rows_dev = torch.from_numpy(rows).to(index.device)
+    k_oracle = min(k, rows.shape[0])
+    _, pos = exact_knn(q, rows_dev, k=k_oracle, metric=metric)
+    pos = pos.cpu().numpy()                     # oracle in row positions
+    n_true = pos.size
+
+    grid = sorted({int(p) for p in probe_grid if p >= 1})
+    if not grid:
+        raise ValueError("tuner grid is empty — probe_grid prunes "
+                         "every sharded-legal combination")
+    shard_params: list[SearchParams] = []
+    report: list[dict] = []
+    for s, (lo, hi) in enumerate(_shard_bounds(rows.shape[0], n_shards)):
+        if draws is not None:
+            sub = build_index(rows_dev[lo:hi], index.spec,
+                              device=index.device, draws=draws(s, hi - lo))
+        else:
+            gen = torch.Generator(device=index.device).manual_seed(
+                seal_seed(index.seed, s))
+            sub = build_index(rows_dev[lo:hi], index.spec,
+                              device=index.device, generator=gen)
+        owned = (pos >= lo) & (pos < hi)
+        n_owned = int(owned.sum())
+        chosen = None
+        for p in grid:
+            params = SearchParams(k=k, metric=metric, mode=mode, n_probes=p)
+            _, ids = sub.search(q, params)
+            ids = ids.cpu().numpy()
+            # shard-local ids -> row positions; the owned-neighbour hits
+            found = (pos[..., None] - lo == ids[:, None, :]).any(-1) & owned
+            rec_owned = float(found.sum()) / n_owned if n_owned else 1.0
+            row = {"shard": s, "params": params, "recall_owned": rec_owned,
+                   "n_owned": n_owned,
+                   "meets_target": rec_owned >= target_recall}
+            report.append(row)
+            chosen = params
+            if row["meets_target"]:
+                break
+        shard_params.append(chosen)
+
+    # the contribution-weighted global recall the per-shard picks imply
+    implied = sum(r["recall_owned"] * r["n_owned"] / max(1, n_true)
+                  for r in report
+                  if r["params"] is shard_params[r["shard"]])
+    report.append({"shard": -1, "params": None,
+                   "implied_global_recall": round(implied, 4)})
+
+    # deferred: serve.runtime imports the index package
+    from repro_torch.serve.runtime import uniform_shard_params
+    if mesh is not None:
+        from repro_torch.core.sharded_index import (build_sharded_index,
+                                                    make_query_fn)
+        uni = uniform_shard_params(shard_params)
+        db = rows_dev.to(mesh.device)
+        sharded = build_sharded_index(index.seed, db, index.spec.forest,
+                                      mesh, db_axes=db_axes,
+                                      tree_axis=tree_axis)
+        qfn = make_query_fn(sharded.cfg, sharded.n_local, mesh,
+                            db_axes=db_axes, tree_axis=tree_axis, params=uni)
+        _, ids = qfn(sharded, q.to(mesh.device), db)
+        mesh_rec = _recall(ids.cpu().numpy(), pos)
+        report.append({"shard": -1, "params": uni,
+                       "mesh_recall": round(mesh_rec, 4),
+                       "meets_target": mesh_rec >= target_recall})
+
+    if persist:
+        index.shard_params = tuple(shard_params)
+        if index.tuned_params is None:
+            index.tuned_params = uniform_shard_params(shard_params)
+    return shard_params, report

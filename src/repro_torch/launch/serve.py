@@ -1,5 +1,5 @@
 """Serving launcher: tuned index -> capacity plan -> open-loop SLO check
-(port of ``repro/launch/serve.py``, local mode).
+(port of ``repro/launch/serve.py``).
 
 The end-to-end entry point of the serving runtime (DESIGN.md §12), on the GPU
 unless ``--device cpu``:
@@ -23,9 +23,8 @@ free; ``--sweep`` walks a QPS ladder past saturation to locate the knee
 and exercise the overload-degradation ladder.
 
 ``--config fleet.yml`` switches to the config-driven stand-up
-(DESIGN.md §15): the file names the manifest, serving knobs and optional
-autoscaling loop (a mesh section raises: mesh serving is not ported yet);
-the launcher builds the fleet with
+(DESIGN.md §15): the file names the manifest, serving knobs, an optional
+mesh and an optional autoscaling loop; the launcher builds the fleet with
 ``serve.config.build_fleet`` and load-tests the FLEET (not a single
 runtime), printing any autoscaler decisions the traffic provoked:
 

@@ -1,8 +1,8 @@
-"""Serving runtime subsystem, local mode (port of ``repro/serve``;
-DESIGN.md §12, §15).
+"""Serving runtime subsystem (port of ``repro/serve``; DESIGN.md §12,
+§15).
 
-    runtime.ServingRuntime   tuned serving + overload degradation (mesh
-                             serving waits for the sharded index)
+    runtime.ServingRuntime   tuned serving + overload degradation, local
+                             or row-sharded over a mesh
     planner                  traffic-model capacity planner (QPS x SLO)
     autoscaler               replica fleet + the control loop that re-runs
                              the planner against measured demand

@@ -1,5 +1,5 @@
 """Config-driven fleet stand-up: a small yml schema -> plan() + runtimes
-(port of ``repro/serve/config.py``, local mode).
+(port of ``repro/serve/config.py``).
 
 A serving fleet used to be hand-wired kwargs across ``ServingRuntime``,
 ``planner.plan`` and the mesh helpers; this module makes it a file
@@ -13,9 +13,9 @@ A serving fleet used to be hand-wired kwargs across ``ServingRuntime``,
       max_batch: 32
       max_wait_s: 0.002
       degrade: true
-    mesh:                           # row-sharded serving: not ported
-      shape: [4, 2]                 # yet, a mesh section raises
-      axes: [data, model]           # NotImplementedError
+    mesh:                           # optional: serve row-sharded
+      shape: [4, 2]                 # (core/sharded_index.Mesh on the
+      axes: [data, model]           # index's device)
     autoscale:                      # optional: close the planner loop
       enabled: true
       qps: 500.0                    # initial sizing target for plan()
@@ -141,9 +141,9 @@ def build_fleet(config: str | dict, index=None, model=None,
     plan against measured demand.
 
     ``index`` / ``model`` override the manifest for callers that already
-    hold one (tests, benchmarks).  A ``mesh:`` section raises
-    ``NotImplementedError``: row-sharded serving waits for the sharded
-    index (ROADMAP.md queue 1 item 8).
+    hold one (tests, benchmarks).  A ``mesh:`` section serves every
+    replica row-sharded over a ``Mesh(shape, axes)`` on the index's device
+    (db axis ``data``, tree axis ``model``).
     """
     from repro_torch.serve import planner as planner_mod
     from repro_torch.serve.autoscaler import (Autoscaler,
@@ -155,12 +155,6 @@ def build_fleet(config: str | dict, index=None, model=None,
     mesh_cfg = cfg.get("mesh") or {}
     auto_cfg = dict(cfg.get("autoscale") or {})
 
-    if mesh_cfg:
-        raise NotImplementedError(
-            f"fleet config has a mesh section ({mesh_cfg}): mesh-sharded "
-            "serving is not ported yet (ROADMAP.md queue 1 item 8); drop "
-            "the section to serve locally")
-
     if index is None:
         path = cfg.get("index")
         if not path:
@@ -168,6 +162,14 @@ def build_fleet(config: str | dict, index=None, model=None,
                              "entry (or pass index=)")
         from repro_torch.index import load_index
         index = load_index(path, device=device)
+
+    mesh = None
+    if mesh_cfg:
+        from repro_torch.core.sharded_index import Mesh
+        shape = tuple(int(s) for s in mesh_cfg.get("shape", ()))
+        axes = tuple(str(a) for a in mesh_cfg.get("axes",
+                                                  ("data", "model")))
+        mesh = Mesh(shape, axes, device=index.device)   # raises on mismatch
 
     manifest_plan = ServingRuntime.manifest_plan(index)
     slo = serving.get("slo_p99_ms",
@@ -178,7 +180,8 @@ def build_fleet(config: str | dict, index=None, model=None,
             "max_batch", manifest_plan.batch if manifest_plan else 64)),
         max_wait_s=float(serving.get("max_wait_s", 0.002)),
         degrade=bool(serving.get("degrade", True)),
-        use_tuned=bool(serving.get("use_tuned", True)))
+        use_tuned=bool(serving.get("use_tuned", True)),
+        mesh=mesh)
 
     def make_replica(batch: int | None = None):
         kw = dict(rt_kw)

@@ -1,16 +1,17 @@
 """ServingRuntime: the tuned, overload-safe serving front-end (port of
-``repro/serve/runtime.py``, local mode).
+``repro/serve/runtime.py``).
 
 The runtime closes the tune -> serve loop (DESIGN.md §12):
 
   * loads an index (or takes a built one) and resolves its operating point
     — per-shard tuned params (manifest v4) > host tuned params (v3) >
     explicit ``params`` > defaults;
-  * serves host-local through ``index.search`` (mutable while serving) and
-    returns each answer on the host.  The copy to the host is also the
+  * serves host-local through ``index.search`` (mutable while serving),
+    or with ``mesh=`` row-sharded through a ``core.sharded_index.
+    ShardedIndex`` over the index's live points at stand-up, and returns
+    each answer on the host.  The copy to the host is also the
     synchronisation that makes ``warmup`` and ``calibrate`` time the
-    device's work, not only its launches.  Mesh-sharded serving waits for
-    the sharded index (ROADMAP.md queue 1 item 8): ``mesh=`` raises;
+    device's work, not only its launches;
   * fronts everything with the DynamicBatcher, plus **overload
     degradation**: a ladder of operating points descending in cost (step
     ``n_probes`` down, then ``n_trees``); when queue depth breaches what
@@ -33,7 +34,9 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.index import CapabilityError, SearchParams, load_index
+from repro_torch.core.sharded_index import ShardedIndex
+from repro_torch.index import (CapabilityError, SearchParams, Violation,
+                               load_index)
 from repro_torch.serve import planner as planner_mod
 from repro_torch.serve.batching import DynamicBatcher
 
@@ -120,8 +123,8 @@ def uniform_shard_params(shard_params: Sequence[SearchParams]
 
 
 class ServingRuntime:
-    """One process's serving stack: index -> query step -> degradation
-    ladder -> dynamic batcher.
+    """One process's serving stack: index -> (sharded) query step ->
+    degradation ladder -> dynamic batcher.
 
     ``submit(q)`` / ``__call__(q)`` serve single 1-D query vectors and
     return ``(dists (k,), global_ids (k,))`` as host arrays;
@@ -133,14 +136,12 @@ class ServingRuntime:
                  use_tuned: bool = True, slo_p99_ms: float | None = None,
                  max_batch: int = 64, max_wait_s: float = 0.002,
                  ladder: Sequence[SearchParams] | None = None,
-                 degrade: bool = True, mesh=None, warmup: bool = True,
+                 degrade: bool = True, mesh=None,
+                 db_axes: Sequence[str] = ("data",),
+                 tree_axis: str = "model", warmup: bool = True,
                  shed_depth: int | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is not ported yet: it needs the "
-                "sharded index (ROADMAP.md queue 1 item 8); serve locally "
-                "(mesh=None)")
         self.index = index
+        self.mesh = mesh
         self.max_batch = int(max_batch)
         self.slo_p99_ms = slo_p99_ms
         total_trees = int(getattr(index.spec.forest, "n_trees", 1))
@@ -149,12 +150,23 @@ class ServingRuntime:
         # stand-up so a bad operating point fails here, not per-request in
         # the batcher
         bad = self.params.capabilities("serving")
+        if (mesh is not None and self.params.filter is not None
+                and getattr(index, "meta_store", None) is None):
+            bad.append(Violation(
+                "filter", "sharded",
+                "params.filter is set but this index carries no metadata",
+                "build with build_index(..., metadata={col: values}) to "
+                "serve filtered queries on a mesh"))
         if bad:
             raise CapabilityError(bad, "serving")
         if ladder is None:
             ladder = build_ladder(self.params, total_trees)
         if not degrade:
             ladder = ladder[:1]
+        if mesh is not None:
+            # the perf knobs projected onto the mesh-legal set; .sharded()
+            # keeps filter and probe_schedule, which ShardedIndex serves
+            ladder = tuple(dict.fromkeys(p.sharded() for p in ladder))
         self.ladder: tuple[SearchParams, ...] = tuple(ladder)
         self._rung = 0
         self._counters = {
@@ -162,6 +174,12 @@ class ServingRuntime:
             "requests_total": 0, "batches_by_rung": [0] * len(self.ladder),
         }
         self._service_s: list[float] = [0.0] * len(self.ladder)
+        if mesh is not None:
+            # the facade owns the padded rows, the validity bitmap, the id
+            # remap and a step per rung; the rungs are already projected,
+            # so strict mode guards only what cannot be stripped (filter)
+            self._sharded = ShardedIndex(index, mesh, db_axes=db_axes,
+                                         tree_axis=tree_axis, strict=True)
         self._batcher = DynamicBatcher(self._serve_batch,
                                        max_batch=max_batch,
                                        max_wait_s=max_wait_s)
@@ -192,7 +210,7 @@ class ServingRuntime:
         """Stand a runtime up from a saved manifest, loaded onto ``device``
         (the GPU unless ``device="cpu"``): the tuned operating point,
         per-shard params and capacity plan (format 4) all apply without
-        retuning."""
+        retuning; ``kw`` (``mesh=`` among them) go to the runtime."""
         index = load_index(path, device=device)
         plan = cls.manifest_plan(index)
         if plan is not None and "max_batch" not in kw:
@@ -217,9 +235,10 @@ class ServingRuntime:
 
     def _search(self, q: np.ndarray, rung: int
                 ) -> tuple[np.ndarray, np.ndarray]:
-        """One search at rung ``rung``, its answer copied to the host (the
-        copy waits for the device)."""
-        d, i = self.index.search(q, self.ladder[rung])
+        """One search at rung ``rung`` (on the mesh when there is one), its
+        answer copied to the host (the copy waits for the device)."""
+        target = self.index if self.mesh is None else self._sharded
+        d, i = target.search(q, self.ladder[rung])
         return d.cpu().numpy(), i.cpu().numpy()
 
     # ------------------------------------------------------------- serving
@@ -328,7 +347,7 @@ class ServingRuntime:
             "shed_depth": self._shed_depth,
             "shed_fraction": c["requests_degraded"] / total,
             "service_s_by_rung": list(self._service_s),
-            "sharded": False,
+            "sharded": self.mesh is not None,
             **c,
             "batcher": dict(self._batcher.stats),
         }

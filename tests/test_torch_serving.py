@@ -513,22 +513,6 @@ def test_ann_service_matches_the_reference_through_its_lifecycle(corpus):
     np.testing.assert_array_equal(ti, ji)
 
 
-# ---------------------------------------------------------------------------
-# mesh mode is refused, never served locally
-# ---------------------------------------------------------------------------
-
-def test_mesh_raises_not_implemented(runtimes, manifest):
-    _, trt = runtimes
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tserve.ServingRuntime(trt.index, mesh=object(), warmup=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tserve.ServingRuntime.load(manifest, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tserve.build_fleet({"mesh": {"shape": [2, 1],
-                                     "axes": ["data", "model"]},
-                            "serving": {"max_batch": 8}}, index=trt.index)
-
-
 def test_a_bad_operating_point_fails_at_stand_up(runtimes):
     _, trt = runtimes
     with pytest.raises(tindex.CapabilityError, match="serving"):
