@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Thirteen paths, each driven through the entry points a user calls, with every
+Fourteen paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -121,6 +121,31 @@ version may have run):
            with a ``mesh:`` section 200, every answer bit for bit its
            query's row of a direct ``ShardedIndex.search`` (kernels A and
            B, and the scan in the brute regime)
+  recsys   the recommenders through ``launch/steps.build_cell`` on the card.
+           MIND at full width (a 1,000,192 x 64 catalog, hist 50, 4
+           interests, 3 routing iterations): ``serve_p99`` (512 users) and
+           ``serve_bulk`` (262,144) run ``mind_train_logits``;
+           ``retrieval_cand`` brute-force (4 interests x the catalog, the max
+           over interests, a top-100) and with ``variant="rpf=1"`` (the
+           paper's index over the catalog on ``Mesh((1, 1))``: 80 trees, C =
+           16, r = 0.3, l2, k = 100; its build timed; kernels A and B);
+           ``recsys.embedding_bag`` on the MIND table at the history bag's
+           two batch sizes, ids -1 and past the table included (kernel H).
+           DLRM-MLPerf (every table capped at 4,000,000 rows: its 187.8M
+           rows are 96 GB of f32), AutoInt and Wide&Deep: ``serve_p99``,
+           ``serve_bulk`` and ``retrieval_cand`` at 131,072 candidates.
+           Checks: every output against the same port function in float64
+           on the CPU over a 64-user slab (the table rows it touches),
+           rtol 1e-4 / atol 1e-5; the brute retrievals' ids against their
+           float64 answers at every untied rank; ``rpf=1`` against the same
+           program in ``kernel_mode="ref"`` by the compare rule over runs
+           of equal ids; H by its rule; a second build's forest bit for
+           bit; IEEE fp32 products (TF32 off, matmul precision "highest").
+           Printed: ms and users / s a cell, the retrievals' ms, recall@100
+           of ``rpf=1`` against the exact l2 answer of the same program
+           (kernel D per interest, merged), its overlap with the brute
+           max-dot answer, and the device's idle share (profiler) for
+           ``serve_p99`` and both retrievals
 
 Phases, each printing one JSON line:
 
@@ -172,6 +197,9 @@ Phases, each printing one JSON line:
            the run; and the traffic model, warm-up seconds by rung, shed
            depth, rated QPS and plan
   sharded  the sharded path's build, its checks, its served runs and plan
+  recsys   one line per recommender cell (ms, users / s, peak device
+           memory, error against float64, launches) and the MIND
+           retrievals' line
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -2714,6 +2742,308 @@ def main():
         **{f"deleted P={p} 1024": digest(del_res[p]) for p in PROBES}}})
     launches_by_path["sharded"] = dict(sh_launches)
     del sx
+
+    # ---- path: recsys (the recommenders through launch/steps.build_cell) ---
+    # MIND at full width (1,000,192 x 64 catalog, hist 50, 4 interests, 3
+    # routing iterations): serve_p99 / serve_bulk (mind_train_logits),
+    # retrieval_cand brute-force (4 interests x the catalog, max, top-100)
+    # and through the paper's index (rpf=1: kernels A and B on Mesh((1,
+    # 1))), recsys.embedding_bag on its table (kernel H); DLRM-MLPerf
+    # (tables capped at 4,000,000 rows), AutoInt and Wide&Deep: serve_p99,
+    # serve_bulk and retrieval_cand at 131,072 candidates.  Gates: every
+    # output against the same port function in float64 on the CPU (the
+    # table rows a 64-user slab touches), the brute retrievals' ids at
+    # every untied rank, rpf=1 against kernel_mode="ref" by the compare
+    # rule, H by its rule, a second build's forest bit for bit
+    def recsys_path():
+        from repro_torch.configs import get_arch
+        from repro_torch.kernels.common import topk_smallest
+        from repro_torch.launch import steps
+        from repro_torch.models import recsys as rs
+        check(not torch.backends.cuda.matmul.allow_tf32
+              and torch.get_float32_matmul_precision() == "highest",
+              "recsys: fp32 products are not IEEE fp32")
+        tol64 = (1e-4, 1e-5)            # rtol, atol against float64
+        rec_launches = collections.Counter()
+        errs = {}
+
+        def drive(fn, names, tag):
+            out, launches, ref_calls = counted(torch, counters, fn)
+            require(launches, ref_calls, names, f"recsys {tag}")
+            rec_launches.update(launches)
+            return out, launches
+
+        def close64(got, want, tag):
+            """float32 ``got`` against float64 ``want``, elementwise."""
+            got = got.detach().double().cpu()
+            err = (got - want).abs()
+            check(bool((err <= tol64[0] * want.abs() + tol64[1]).all()),
+                  f"recsys {tag}: {float(err.max())} from float64")
+            return float(err.max())
+
+        def model64(cfg, model, batch, n):
+            """The model in float64 on the CPU with only the table rows the
+            first ``n`` users of ``batch`` touch, and that slab re-indexed."""
+            tree = rs.param_tree(model)
+            b = {k: v[:n] for k, v in batch.items()}
+            out = {}
+
+            def sub(table, cols):
+                idx = [rs.gather_index(c, table.shape[0]) for c in cols]
+                uniq = torch.unique(torch.cat([i.flatten() for i in idx]))
+                return (table.detach()[uniq].double().cpu(),
+                        [torch.searchsorted(uniq, i).cpu() for i in idx])
+
+            for name, value in tree.items():
+                if name in ("tables", "wide_tables"):
+                    out[name], cols = [], []
+                    for i, t in enumerate(value):
+                        t64, (c,) = sub(t, [b["sparse"][:, i]])
+                        out[name].append(t64)
+                        cols.append(c)
+                    sparse = torch.stack(cols, dim=1)
+                elif name == "item_embed":
+                    out[name], (hist, tgt) = sub(value, [b["hist"],
+                                                         b["target"]])
+                else:
+                    out[name] = steps._tree_map(
+                        lambda t: t.detach().double().cpu(), value)
+            b64 = ({"hist": hist, "target": tgt} if cfg.model == "mind"
+                   else {"sparse": sparse})
+            if "dense" in b:
+                b64["dense"] = b["dense"].double().cpu()
+            return rs.MODELS[cfg.model](cfg, out), b64
+
+        def serve_cell(arch, cell, variant, seed):
+            prog = steps.build_cell(arch, cell, variant=variant, device=dev)
+            cfg = steps._recsys_variant(get_arch(arch).config, variant)[0]
+            t0 = time.perf_counter()
+            params, batch = prog.make_args(
+                torch.Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            args_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()   # the script's tensors too
+            out, launches = drive(lambda: prog.fn(params, batch), (),
+                                  f"{arch} {cell}")
+            peak = torch.cuda.max_memory_allocated()
+            b = batch[next(iter(batch))].shape[0]
+            check(out.shape == (b,) and bool(out.isfinite().all()),
+                  f"recsys {arch} {cell}: output {tuple(out.shape)}")
+            m64, b64 = model64(cfg, params, batch, 64)
+            with torch.no_grad():
+                want = steps._recsys_fwd(cfg)(m64, b64)
+            errs[f"{arch} {cell}"] = close64(out[:64], want,
+                                             f"{arch} {cell}")
+            ms = time_ms(torch, lambda: prog.fn(params, batch),
+                         25 if b <= 512 else 5)
+            row = {"arch": arch, "cell": cell, "variant": variant,
+                   "batch": b, "ms": ms, "users_per_s": b / ms * 1e3,
+                   "peak_device_gb": peak / 1e9, "args_s": args_s,
+                   "max_abs_err_vs_f64": errs[f"{arch} {cell}"],
+                   "launches": launches, "meta": prog.meta}
+            if arch == "mind" and cell == "serve_p99":
+                row["profile"] = idle_share(lambda: prog.fn(params, batch))
+            emit({"phase": "recsys", "card": smi, **row})
+
+        def ctr_retrieval(arch, variant, seed):
+            prog = steps.build_cell(arch, "retrieval_cand", variant=variant,
+                                    device=dev)
+            cfg = steps._recsys_variant(get_arch(arch).config, variant)[0]
+            params, user, cand = prog.make_args(
+                torch.Generator(device=dev).manual_seed(seed))
+            (top, ids), launches = drive(lambda: prog.fn(params, user, cand),
+                                         (), f"{arch} retrieval")
+            # float64 over the distinct rows the candidates read
+            last = cfg.n_sparse - 1
+            col = rs.gather_index(cand, params.tables[last].shape[0])
+            uniq, inv = torch.unique(col, return_inverse=True)
+            ub = {"sparse": user["sparse"].expand(len(uniq), -1).clone()}
+            ub["sparse"][:, last] = uniq.int()
+            if "dense" in user:
+                ub["dense"] = user["dense"].expand(len(uniq), -1)
+            m64, b64 = model64(cfg, params, ub, len(uniq))
+            with torch.no_grad():
+                s64 = steps._recsys_fwd(cfg)(m64, b64)[inv.cpu()]
+            wd, wi = topk_smallest(-s64[None], steps.K_RETRIEVE + 1)
+            got = (-top[None].double().cpu(), ids[None].cpu())
+            errs[f"{arch} retrieval"] = compare_topk(
+                torch, got, (wd, cand.cpu()[wi]), steps.K_RETRIEVE,
+                tol=tol64[0] * wd.abs() + tol64[1])
+            emit({"phase": "recsys", "card": smi,
+                "arch": arch, "cell": "retrieval_cand", "variant": variant,
+                "candidates": cand.shape[0], "distinct_rows": len(uniq),
+                "ms": time_ms(torch, lambda: prog.fn(params, user, cand), 10),
+                "max_abs_err_vs_f64": errs[f"{arch} retrieval"],
+                "untied_ranks": untied(wd[0, :steps.K_RETRIEVE + 1]),
+                "launches": launches, "meta": prog.meta})
+
+        def untied(d):
+            """Ranks of ``d`` (k + 1 ascending) apart from both neighbours
+            by more than the float64 tolerance."""
+            tol = tol64[0] * d.abs() + tol64[1]
+            gap = d[1:] - d[:-1]
+            sep = torch.ones(d.shape[0] - 1, dtype=torch.bool)
+            sep[1:] &= gap[:-1] > tol[1:-1]
+            sep &= gap > tol[:-1]
+            return int(sep.sum())
+
+        # MIND: serve cells, then the two retrievals of one user
+        for cell in ("serve_p99", "serve_bulk"):
+            serve_cell("mind", cell, "base", 31)
+        cfg = get_arch("mind").config
+        brute_cell = {c.name: c for c in get_arch("mind").cells}[
+            "retrieval_cand"]
+        brute = steps.build_cell("mind", "retrieval_cand", device=dev)
+        params, hist = brute.make_args(
+            torch.Generator(device=dev).manual_seed(31))
+        check(params.item_embed.shape == (1_000_192, 64),
+              f"recsys: the MIND catalog is {tuple(params.item_embed.shape)}")
+        (b_top, b_ids), launches = drive(lambda: brute.fn(params, hist), (),
+                                         "mind retrieval")
+        m64, h64 = model64(cfg, params, {"hist": hist, "target": hist[:, 0]},
+                           1)
+        with torch.no_grad():
+            interests = rs.mind_user_fwd(m64, cfg, h64["hist"])
+            s64 = torch.einsum("bkd,nd->bkn", interests,
+                               params.item_embed.detach().double().cpu()
+                               ).amax(dim=1)
+        wd, wi = topk_smallest(-s64, steps.K_RETRIEVE + 1)
+        errs["mind retrieval"] = compare_topk(
+            torch, (-b_top.double().cpu(), b_ids.cpu()), (wd, wi.int()),
+            steps.K_RETRIEVE, tol=tol64[0] * wd.abs() + tol64[1])
+        brute_ms = time_ms(torch, lambda: brute.fn(params, hist), 25)
+        del s64
+
+        # rpf=1: the forest over the catalog (kernel A descends, kernel B
+        # reranks), its build timed, a second build bit for bit
+        rpf = steps.build_cell("mind", "retrieval_cand", variant="rpf=1",
+                               device=dev)
+        mesh11 = Mesh((1, 1), device=dev)
+
+        def build_and_search():
+            t0 = time.perf_counter()
+            forest = steps.build_catalog_index(params, mesh11)
+            torch.cuda.synchronize()
+            return forest, time.perf_counter() - t0, rpf.fn(params, hist,
+                                                            forest)
+
+        (forest, build_s, (r_d, r_ids)), launches = drive(
+            build_and_search, ("forest_traverse", "fused_gather_topk"),
+            "mind rpf=1")
+        rpf_launches = launches
+        t0 = time.perf_counter()
+        again = steps.build_catalog_index(params, mesh11)
+        torch.cuda.synchronize()
+        build2_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for (_, fa), (_, fb) in zip(
+            forest.cells, again.cells) for a, b in zip(fa, fb)),
+              "recsys rpf=1: a second build under the same seed differs")
+        del again
+        plain = steps._mind_rpf_retrieval_program(
+            get_arch("mind"), brute_cell, mesh11, False,
+            kernel_mode="ref")
+        p_d, p_ids = plain.fn(params, hist, forest)
+
+        def runs(d, i):
+            first = torch.ones_like(i, dtype=torch.bool)
+            first[:, 1:] = i[:, 1:] != i[:, :-1]
+            return d[first][None], i[first][None]
+
+        (gd, gi), (pd_, pi) = runs(r_d, r_ids), runs(p_d, p_ids)
+        check(gi.shape == pi.shape, f"recsys rpf=1: {gi.shape[1]} runs of "
+              f"ids against the plain path's {pi.shape[1]}")
+        errs["mind rpf=1"] = compare_topk(torch, (gd[:, :-1], gi[:, :-1]),
+                                          (pd_, pi), gi.shape[1] - 1)
+        # the exact l2 answer of the same program: kernel D per interest,
+        # merged as the program merges the forest's lists
+        with torch.no_grad():
+            flat = rs.mind_user_fwd(params, cfg, hist).reshape(
+                cfg.n_interests, cfg.embed_dim)
+            e_d, e_i = ops.topk(flat, params.item_embed.detach(),
+                                steps.K_RETRIEVE, "l2")
+            x_d, x_i = merge_topk_pairs(e_d.reshape(1, -1),
+                                        e_i.reshape(1, -1), steps.K_RETRIEVE)
+        rpf_set, exact_set = set(r_ids[0].tolist()), set(x_i[0].tolist())
+        brute_set = set(b_ids[0].tolist())
+        rpf_ms = time_ms(torch, lambda: rpf.fn(params, hist, forest), 25)
+        emit({"phase": "recsys", "card": smi, "arch": "mind", "cell": "retrieval_cand", "catalog": list(
+                params.item_embed.shape), "interests": cfg.n_interests,
+            "brute_ms": brute_ms, "rpf_ms": rpf_ms,
+            "rpf_build_s": build_s, "rpf_build2_s": build2_s,
+            "rpf_trees": forest.cfg.n_trees,
+            "rpf_max_depth": forest.cfg.max_depth,
+            "rpf_launches": rpf_launches,
+            "recall_at_100_vs_exact_l2": recall_at_k(r_ids, x_i),
+            "distinct_recall_vs_exact_l2": len(rpf_set & exact_set)
+            / len(exact_set),
+            "rpf_distinct_items": len(rpf_set),
+            "exact_l2_distinct_items": len(exact_set),
+            "rpf_l2_first_last": [float(r_d[0, 0]), float(r_d[0, -1])],
+            "exact_l2_first_last": [float(x_d[0, 0]), float(x_d[0, -1])],
+            "overlap_with_brute_max_dot": len(rpf_set & brute_set),
+            "brute_padded_rows_returned": int(
+                (b_ids >= cfg.item_vocab).sum()),
+            "brute_max_abs_err_vs_f64": errs["mind retrieval"],
+            "brute_untied_ranks": untied(wd[0]),
+            "rpf_max_abs_err_vs_plain": errs["mind rpf=1"],
+            "profile": {"brute": idle_share(lambda: brute.fn(params, hist)),
+                        "rpf=1": idle_share(lambda: rpf.fn(params, hist,
+                                                           forest))}})
+        del forest
+
+        # kernel H through recsys.embedding_bag on the MIND catalog, at the
+        # history bag's two batch sizes; ids past the table and -1 on the
+        # first (the reference's gather rule maps them into it)
+        rgen = torch.Generator(device=dev).manual_seed(32)
+        tab = params.item_embed
+        n_rows = tab.shape[0]
+
+        def bag_batch(b, edge):
+            ids = torch.randint(0, bagcfg.ITEM_VOCAB, (b, bagcfg.HIST_LEN),
+                                generator=rgen, device=dev, dtype=torch.int32)
+            w = torch.rand((b, bagcfg.HIST_LEN), generator=rgen, device=dev)
+            if edge:
+                ids[:, 0], ids[:, 1] = -1, n_rows + 7
+                ids[:, 2] = -n_rows - 3
+            return ids, w
+
+        bags = {name: bag_batch(b, name == "serve_p99")
+                for name, b in bagcfg.BATCHES.items()}
+        bag_out, launches = drive(lambda: {
+            **{name: rs.embedding_bag(tab, ids, w)
+               for name, (ids, w) in bags.items()},
+            "unweighted": rs.embedding_bag(tab, bags["serve_p99"][0])},
+            ("embedding_bag",), "bag")
+        h_errs = {}
+        for name, (ids, w) in bags.items():
+            h_errs[name] = bag_err(bag_out[name],
+                                   rs.gather_index(ids, n_rows).int(), w,
+                                   tab.detach())
+        ids = bags["serve_p99"][0]
+        h_errs["unweighted"] = bag_err(
+            bag_out["unweighted"], rs.gather_index(ids, n_rows).int(),
+            torch.ones(ids.shape, device=dev), tab.detach())
+        emit({"phase": "recsys", "cell": "mind bag", "card": smi,
+              "batches": dict(bagcfg.BATCHES), "launches": launches,
+              "max_abs_err": h_errs})
+        del params, bag_out, bags
+        torch.cuda.empty_cache()
+
+        # the CTR models
+        for seed, (arch, variant) in enumerate((
+                ("dlrm-mlperf", "rows=4000000,cand=131072"),
+                ("autoint", "cand=131072"), ("wide-deep", "cand=131072"))):
+            for cell in ("serve_p99", "serve_bulk"):
+                serve_cell(arch, cell, variant, 40 + seed)
+            ctr_retrieval(arch, variant, 40 + seed)
+            torch.cuda.empty_cache()
+        emit({"phase": "compare", "path": "recsys",
+              "max_abs_err_vs_f64": errs,
+              "tolerance_vs_f64": f"{tol64[0]} |x| + {tol64[1]}",
+              "rpf_vs_plain": "compare rule over runs of equal ids"})
+        return dict(rec_launches)
+
+    launches_by_path["recsys"] = recsys_path()
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

@@ -5,6 +5,7 @@ N = 60000 unit-normalized 784-D rows; L = 80 trees, C = 12, r = 0.3, K = 1;
 Euclidean distance; recall against exact nearest neighbours.  The serving
 cell queries batches of 1024.
 """
+from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.core.forest import ForestConfig
 
 CONFIG = ForestConfig(n_trees=80, capacity=12, split_ratio=0.3, n_proj=1)
@@ -15,3 +16,11 @@ N_TEST = 10_000
 DIM = 784
 METRIC = "l2"
 QUERY_BATCH = 1024
+
+CELLS = (
+    ShapeCell("index_build", "train", batch=N_DB),
+    ShapeCell("query_batch", "serve", batch=QUERY_BATCH),
+)
+
+ARCH = ArchSpec(arch_id="rpf-mnist784", family="ann", config=CONFIG,
+                cells=CELLS, notes="paper Fig. 4 reproduction")

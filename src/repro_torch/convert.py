@@ -10,6 +10,10 @@ An ``lsh-cascade`` index's state is its rows alone: its tables are rebuilt
 from (rows, spec), as the reference's ``from_state`` rebuilds them.  A
 whole index, segments, tombstones and all, crosses through a saved
 manifest instead (``index.load_index``).
+
+``recsys_from_numpy`` takes a recommender's params tree as numpy arrays --
+for example ``jax.device_get(init_mind(key, cfg))`` -- and returns the
+port's module with the same weights.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.core.forest import Forest
 from repro_torch.device import resolve_device
 from repro_torch.index.api import get_backend
 from repro_torch.index.params import IndexSpec
+from repro_torch.models import recsys as rs
 
 _DTYPES = {"proj_idx": torch.int32, "proj_coef": torch.float32,
            "thresh": torch.float32, "child_base": torch.int32,
@@ -81,3 +86,24 @@ def index_from_numpy(db, forest_arrays, spec: IndexSpec,
                 raise ValueError(f"the port's quantize_db does not "
                                  f"reproduce the carried {name}")
     return index
+
+
+def recsys_from_numpy(tree: Mapping[str, Any], cfg=None,
+                      device: str | torch.device | None = None):
+    """The port's recommender with the weights of a reference params tree
+    of numpy arrays, on ``device`` (the GPU unless ``device="cpu"``):
+    ``DLRM``, ``AutoInt``, ``WideDeep`` or ``MIND`` after ``cfg.model``,
+    the two-tower model where ``cfg`` is None."""
+    dev = resolve_device(device)
+
+    def leaf(node):
+        if isinstance(node, Mapping):
+            return {k: leaf(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [leaf(v) for v in node]
+        return torch.tensor(np.asarray(node), device=dev)
+
+    params = leaf(tree)
+    if cfg is None:
+        return rs.TwoTower(params)
+    return rs.MODELS[cfg.model](cfg, params)

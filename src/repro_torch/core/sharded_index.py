@@ -52,6 +52,8 @@ import torch
 from repro_torch.core.forest import Forest, ForestConfig, build_forest
 from repro_torch.core.pipeline import candidates, rerank_fused
 from repro_torch.core.schedule import _improvement, probe_widths
+# re-exported, as the reference's module re-exports it
+from repro_torch.core.search import merge_topk_pairs
 from repro_torch.device import resolve_device
 from repro_torch.filter.predicate import use_brute_force, widen_params
 from repro_torch.index.api import seal_seed
@@ -61,7 +63,7 @@ from repro_torch.index.segments import brute_force_topk
 from repro_torch.kernels.common import POS_INF, topk_smallest
 
 __all__ = ["CellDraws", "Mesh", "ShardedForest", "ShardedIndex",
-           "build_sharded_index", "make_query_fn"]
+           "build_sharded_index", "make_query_fn", "merge_topk_pairs"]
 
 
 class Mesh:

@@ -1,0 +1,451 @@
+"""Cell programs (port of the recsys part of ``repro/launch/steps.py``):
+(arch x shape-cell x mesh) -> a step function, its arguments' shapes, and
+a way to make them.
+
+For every recsys serve and retrieval cell this builds a ``CellProgram``:
+  * ``fn``, the step (serve / retrieval), run under ``torch.no_grad``;
+  * ``args``, ``ShapeDtype`` stand-ins for every input, leaf for leaf the
+    reference's ``ShapeDtypeStruct``s (the parameters' shapes are read on
+    the ``meta`` device, so nothing is allocated);
+  * ``meta``, model flops and parameter counts (``_recsys_meta``);
+  * ``make_args(generator)``, real arguments on the mesh's device: the
+    model's init drawn from ``generator`` (on that device), batches from
+    the data streams seeded with ``generator.initial_seed()`` (seeded
+    uniform ids for a MIND batch over ``STREAM_MAX_BATCH`` users, where
+    ``BehaviorStream``'s loop over users would take seconds), candidate
+    ids ``arange(n)``, and for ``rpf=1`` the catalog's forest
+    (``build_catalog_index``).
+
+The reference's ``in_shardings`` place the inputs over a TPU mesh; one
+process has no counterpart.  The mesh is the port's logical
+``core.sharded_index.Mesh`` (``Mesh((1, 1))`` on the device by default),
+and only the ``rpf=1`` retrieval runs cells on it.  Training cells and the
+``lm`` and ``gnn`` families are not ported yet (ROADMAP.md queue 1 item 9):
+``build_cell`` raises ``NotImplementedError`` for them.
+
+``variant`` is "base" or comma-separated keys: ``rpf=1`` serves MIND's
+``retrieval_cand`` through the paper's index (the reference's); for one
+card, ``rows=N`` caps every table at N rows (DLRM-MLPerf's 187.8M rows are
+96 GB of f32) and ``cand=N`` scores N candidates in a CTR model's
+retrieval instead of 1,048,576.  An unknown key raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ArchSpec, RecsysConfig, ShapeCell
+from repro_torch.core.forest import Forest, ForestConfig
+from repro_torch.core.sharded_index import (CellDraws, Mesh, ShardedForest,
+                                            build_sharded_index,
+                                            make_query_fn, merge_topk_pairs)
+from repro_torch.data.recsys_data import BehaviorStream, CTRStream
+from repro_torch.kernels.common import topk_smallest
+from repro_torch.launch.mesh import dp_axes
+from repro_torch.models import recsys as rs
+from repro_torch.models.layers import Axes
+
+K_RETRIEVE = 100
+# 1M candidates padded to 2^20 (the reference shards them over 256 and 512
+# chips)
+N_CAND = 1_048_576
+# the paper's index over MIND's catalog (the reference's rpf=1 program)
+MIND_FOREST = ForestConfig(n_trees=80, capacity=16, split_ratio=0.3)
+# the largest MIND batch drawn from BehaviorStream
+STREAM_MAX_BATCH = 65_536
+NOT_PORTED = ("not ported yet (ROADMAP.md queue 1 item 9: the seed's "
+              "non-ANN code)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """An input's shape and dtype (the reference's ``ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+class CellProgram(NamedTuple):
+    fn: Callable
+    args: tuple                # ShapeDtype trees, the reference's layout
+    meta: dict                 # model_flops etc.
+    make_args: Callable        # (generator) -> real args on the device
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        vals = [_tree_map(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> list:
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _sds(tree):
+    """tensor tree -> ShapeDtype tree."""
+    return _tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), tree)
+
+
+def _pad_to(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _dp_size(mesh: Mesh, dp: tuple[str, ...]) -> int:
+    out = 1
+    for a in dp:
+        out *= mesh.shape[a]
+    return out
+
+
+# ===========================================================================
+# RecSys cells
+# ===========================================================================
+
+
+def _recsys_fwd(cfg: RecsysConfig):
+    if cfg.model == "dlrm":
+        return lambda p, b: rs.dlrm_fwd(p, b["dense"], b["sparse"])
+    if cfg.model == "autoint":
+        return lambda p, b: rs.autoint_fwd(p, b["sparse"])
+    if cfg.model == "widedeep":
+        return lambda p, b: rs.widedeep_fwd(p, b["sparse"])
+    if cfg.model == "mind":
+        return lambda p, b: rs.mind_train_logits(p, cfg, b["hist"],
+                                                 b["target"])
+    raise ValueError(cfg.model)
+
+
+def _recsys_init(cfg: RecsysConfig):
+    """``init(generator=None, device="meta")`` -> the model."""
+    init = rs.INITS[cfg.model]
+    return lambda generator=None, device="meta": init(generator, cfg, device)
+
+
+def _params_sds(cfg: RecsysConfig) -> dict:
+    return _sds(rs.param_tree(_recsys_init(cfg)()))
+
+
+def _recsys_batch(cfg: RecsysConfig, b: int, axes: Optional[Axes],
+                  train: bool) -> dict:
+    """The batch's ShapeDtypes (the reference's sds; its partition specs
+    have no counterpart)."""
+    sds = {}
+    if cfg.model == "mind":
+        sds["hist"] = ShapeDtype((b, cfg.hist_len), torch.int32)
+        sds["target"] = ShapeDtype((b,), torch.int32)
+    else:
+        if cfg.n_dense:
+            sds["dense"] = ShapeDtype((b, cfg.n_dense), torch.float32)
+        sds["sparse"] = ShapeDtype((b, cfg.n_sparse), torch.int32)
+    if train:
+        sds["labels"] = ShapeDtype((b,), torch.float32)
+    return sds
+
+
+def recsys_data(cfg: RecsysConfig, b: int, seed: int, device) -> dict:
+    """A batch of ``b`` on ``device``: ``CTRStream`` for the CTR models,
+    ``BehaviorStream`` for MIND up to ``STREAM_MAX_BATCH`` users and
+    seeded uniform ids past it."""
+    if cfg.model != "mind":
+        out = CTRStream(cfg.table_sizes, cfg.n_dense, seed=seed,
+                        multi_hot=cfg.multi_hot).batch(b)
+    elif b <= STREAM_MAX_BATCH:
+        out = BehaviorStream(cfg.item_vocab, cfg.hist_len, seed=seed).batch(b)
+    else:
+        rng = np.random.default_rng(seed)
+        out = {"hist": rng.integers(0, cfg.item_vocab, (b, cfg.hist_len),
+                                    dtype=np.int32),
+               "target": rng.integers(0, cfg.item_vocab, b, dtype=np.int32),
+               "labels": np.ones((b,), np.float32)}
+    return {k: torch.from_numpy(out[k]).to(device)
+            for k in _recsys_batch(cfg, b, None, train=False)}
+
+
+def _top_k(scores: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest, descending, ties to the lower index."""
+    neg, pos = topk_smallest(-scores, k)
+    return -neg, pos.int()
+
+
+def _recsys_serve_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
+                          multi_pod: bool) -> CellProgram:
+    cfg: RecsysConfig = spec.config
+    axes = Axes(dp=dp_axes(multi_pod), tp="model", mesh=mesh)
+    params_sds = _params_sds(cfg)
+    batch_sds = _recsys_batch(cfg, cell.batch, axes, train=False)
+    fwd = _recsys_fwd(cfg)
+
+    @torch.no_grad()
+    def serve_step(params, batch):
+        return fwd(params, batch)
+
+    def make_args(generator: torch.Generator):
+        return (_recsys_init(cfg)(generator, mesh.device),
+                recsys_data(cfg, cell.batch, generator.initial_seed(),
+                            mesh.device))
+
+    return CellProgram(
+        fn=serve_step,
+        args=(params_sds, batch_sds),
+        meta=_recsys_meta(cfg, cell, params_sds, train=False),
+        make_args=make_args,
+    )
+
+
+def _forest_sds(local_cfg: ForestConfig, n_local: int, cells: tuple) -> Forest:
+    """The ShapeDtypes of the cells' forests, with the reference's leading
+    (db shard, tree shard) axes."""
+    lm = cells + (local_cfg.n_trees, local_cfg.max_nodes)
+    i32, f32 = torch.int32, torch.float32
+    return Forest(
+        proj_idx=ShapeDtype(lm + (local_cfg.n_proj,), i32),
+        proj_coef=ShapeDtype(lm + (local_cfg.n_proj,), f32),
+        thresh=ShapeDtype(lm, f32), child_base=ShapeDtype(lm, i32),
+        perm=ShapeDtype(cells + (local_cfg.n_trees, n_local), i32),
+        leaf_offset=ShapeDtype(lm, i32), leaf_count=ShapeDtype(lm, i32),
+        n_nodes=ShapeDtype(cells + (local_cfg.n_trees,), i32))
+
+
+def build_catalog_index(params: rs.MIND, mesh: Mesh, multi_pod: bool = False,
+                        draws: Optional[CellDraws] = None) -> ShardedForest:
+    """``MIND_FOREST`` over the catalog ``params.item_embed``, its rows
+    split over the mesh's db axes and its trees over ``model``; cell (di,
+    ti) draws from ``seal_seed(seal_seed(0, di), ti)``, or from
+    ``draws``."""
+    with torch.no_grad():
+        return build_sharded_index(0, params.item_embed.detach(),
+                                   MIND_FOREST, mesh,
+                                   db_axes=dp_axes(multi_pod),
+                                   tree_axis="model", draws=draws)
+
+
+def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
+                                mesh: Mesh, multi_pod: bool, *,
+                                draws: Optional[CellDraws] = None,
+                                kernel_mode: str = "auto") -> CellProgram:
+    """retrieval_cand served THROUGH the paper's index (variant rpf=1).
+
+    The item catalog is row-sharded over dp (each shard owns a forest over
+    its rows, trees sharded over the ``model`` axis); the interest vectors
+    traverse the forest (kernel A), rerank only ~L*C candidates per shard
+    (kernel B), and a small top-k merge crosses the mesh -- vs the
+    brute-force variant's full-catalog scoring.  Ranked by l2, as the
+    reference's (whose docstring assumes unit-norm rows that ``init_mind``
+    does not make).  ``kernel_mode="ref"`` runs the plain versions.
+    """
+    cfg: RecsysConfig = spec.config
+    dp = dp_axes(multi_pod)
+    dpn = _dp_size(mesh, dp)
+    rows = _pad_to(cfg.item_vocab, cfg.row_pad_to)
+    n_local = rows // dpn
+    fcfg = MIND_FOREST
+    l_local = max(1, fcfg.n_trees // mesh.shape["model"])
+    local_cfg = fcfg._replace(n_trees=l_local).resolved(n_local)
+
+    params_sds = _params_sds(cfg)
+    forest_sds = _forest_sds(local_cfg, n_local,
+                             (dpn, mesh.shape["model"]))
+    hist_sds = ShapeDtype((1, cfg.hist_len), torch.int32)
+    qstep = make_query_fn(local_cfg, n_local, mesh, db_axes=dp,
+                          tree_axis="model", k=K_RETRIEVE, metric="l2",
+                          kernel_mode=kernel_mode)
+
+    @torch.no_grad()
+    def retrieve(params, hist, forest: ShardedForest):
+        interests = rs.mind_user_fwd(params, cfg, hist)      # (1, K, D)
+        flat = interests.reshape(cfg.n_interests, cfg.embed_dim)
+        d, ids = qstep(forest, flat, params.item_embed)
+        # merge the per-interest lists into one top-k
+        return merge_topk_pairs(d.reshape(1, -1), ids.reshape(1, -1),
+                                K_RETRIEVE)
+
+    def make_args(generator: torch.Generator):
+        params = _recsys_init(cfg)(generator, mesh.device)
+        hist = recsys_data(cfg, 1, generator.initial_seed(),
+                           mesh.device)["hist"]
+        return params, hist, build_catalog_index(params, mesh, multi_pod,
+                                                 draws)
+
+    # model flops: traversal + rerank of L*C candidates per interest
+    cand = fcfg.n_trees * local_cfg.leaf_pad
+    flops = 2 * cand * cfg.n_interests * cfg.embed_dim
+    return CellProgram(
+        fn=retrieve,
+        args=(params_sds, hist_sds, forest_sds),
+        meta=_recsys_meta(cfg, cell, params_sds, train=False, flops=flops),
+        make_args=make_args,
+    )
+
+
+def _recsys_retrieval_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
+                              multi_pod: bool, n_cand: int = N_CAND
+                              ) -> CellProgram:
+    """Score ``n_cand`` candidates for one request; top-k output.
+
+    MIND: interests x item-embedding product over the whole catalog (its
+    padded rows too), max over interests.  CTR models: broadcast the user
+    context over the candidate item field (the last sparse field), whose
+    gather clamps every id past its table to the last row.
+    """
+    cfg: RecsysConfig = spec.config
+    axes = Axes(dp=dp_axes(multi_pod), tp="model", mesh=mesh)
+    params_sds = _params_sds(cfg)
+    k, dev = K_RETRIEVE, mesh.device
+
+    if cfg.model == "mind":
+        hist_sds = ShapeDtype((1, cfg.hist_len), torch.int32)
+
+        @torch.no_grad()
+        def retrieve(params, hist):
+            interests = rs.mind_user_fwd(params, cfg, hist)      # (1, K, D)
+            scores = torch.einsum("bkd,nd->bkn", interests,
+                                  params.item_embed)
+            return _top_k(torch.amax(scores, dim=1), k)          # (1, N)
+
+        def make_args(generator: torch.Generator):
+            return (_recsys_init(cfg)(generator, dev),
+                    recsys_data(cfg, 1, generator.initial_seed(),
+                                dev)["hist"])
+
+        return CellProgram(
+            fn=retrieve, args=(params_sds, hist_sds),
+            meta=_recsys_meta(cfg, cell, params_sds, train=False,
+                              flops=2 * N_CAND * cfg.n_interests
+                              * cfg.embed_dim),
+            make_args=make_args,
+        )
+
+    cand_sds = ShapeDtype((n_cand,), torch.int32)
+    user_sds = _recsys_batch(cfg, 1, axes, train=False)
+    item_field = cfg.n_sparse - 1   # last sparse field = item id
+    fwd = _recsys_fwd(cfg)
+
+    @torch.no_grad()
+    def retrieve(params, user, cand_ids):
+        n = cand_ids.shape[0]
+        b = {}
+        if "dense" in user:
+            b["dense"] = user["dense"].expand(n, cfg.n_dense)
+        sp = user["sparse"].expand(n, cfg.n_sparse).clone()
+        sp[:, item_field] = cand_ids
+        b["sparse"] = sp
+        top, pos = _top_k(fwd(params, b), k)
+        return top, cand_ids[pos.long()]
+
+    def make_args(generator: torch.Generator):
+        return (_recsys_init(cfg)(generator, dev),
+                recsys_data(cfg, 1, generator.initial_seed(), dev),
+                torch.arange(n_cand, dtype=torch.int32, device=dev))
+
+    return CellProgram(
+        fn=retrieve,
+        args=(params_sds, user_sds, cand_sds),
+        meta=_recsys_meta(cfg, cell, params_sds, train=False),
+        make_args=make_args,
+    )
+
+
+def _recsys_meta(cfg: RecsysConfig, cell: ShapeCell, params_sds,
+                 train: bool = True, flops: Optional[int] = None) -> dict:
+    n_params = int(sum(np.prod(x.shape) for x in _tree_leaves(params_sds)))
+    b = cell.batch if cell.n_candidates == 0 else cell.n_candidates
+    if flops is None:
+        # active per example: embedding rows + MLP/attention mults
+        mlp = 0
+        if cfg.model == "dlrm":
+            dims = (cfg.n_dense,) + cfg.bot_mlp
+            mlp += sum(2 * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+            f = cfg.n_sparse + 1
+            top_in = f * (f - 1) // 2 + cfg.embed_dim
+            dims = (top_in,) + cfg.top_mlp
+            mlp += sum(2 * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+            mlp += 2 * f * f * cfg.embed_dim
+        elif cfg.model == "autoint":
+            d = cfg.embed_dim
+            for i in range(cfg.n_attn_layers):
+                d_in = d if i == 0 else cfg.d_attn
+                h = cfg.n_attn_heads * cfg.d_attn
+                mlp += cfg.n_sparse * (2 * 3 * d_in * h + 2 * h * cfg.d_attn)
+                mlp += 2 * cfg.n_sparse ** 2 * h * 2
+            mlp += 2 * cfg.n_sparse * cfg.d_attn
+        elif cfg.model == "widedeep":
+            dims = (cfg.n_sparse * cfg.embed_dim,) + cfg.mlp + (1,)
+            mlp += sum(2 * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+        else:  # mind
+            d = cfg.embed_dim
+            mlp += cfg.capsule_iters * 2 * cfg.hist_len * cfg.n_interests * d
+            mlp += 2 * d * 4 * d * 2
+        flops = b * mlp * (3 if train else 1)
+    return {"model_flops": int(flops), "params_total": n_params,
+            "params_active": n_params, "n_tokens": b,
+            "kind": "train" if train else "serve"}
+
+
+# ===========================================================================
+# entry point
+# ===========================================================================
+
+
+def _recsys_variant(cfg: RecsysConfig, variant: str
+                    ) -> tuple[RecsysConfig, bool, int]:
+    """(config, rpf, n_cand) of a recsys ``variant``."""
+    rpf, n_cand = False, N_CAND
+    for item in (variant.split(",") if variant != "base" else []):
+        key, _, val = item.partition("=")
+        if key == "rpf":
+            rpf = val == "1"
+        elif key == "rows":
+            cap = int(val)
+            cfg = dataclasses.replace(
+                cfg, table_sizes=tuple(min(s, cap) for s in cfg.table_sizes),
+                item_vocab=min(cfg.item_vocab, cap))
+        elif key == "cand":
+            n_cand = int(val)
+        else:
+            raise ValueError(f"unknown recsys variant key {key!r}")
+    return cfg, rpf, n_cand
+
+
+def build_cell(arch_id: str, cell_name: str, mesh: Optional[Mesh] = None,
+               multi_pod: bool = False, variant: str = "base",
+               device=None) -> CellProgram:
+    """The cell's program on ``mesh`` (default: a one-cell mesh on
+    ``device``, the GPU unless ``device="cpu"``)."""
+    spec = get_arch(arch_id)
+    cell = {c.name: c for c in spec.cells}[cell_name]
+    if cell.skip:
+        raise ValueError(f"cell {arch_id}/{cell_name} is skipped: "
+                         f"{cell.skip_reason}")
+    if spec.family in ("lm", "gnn") or (spec.family == "recsys"
+                                         and cell.kind == "train"):
+        raise NotImplementedError(
+            f"{arch_id}/{cell_name}: the {spec.family} {cell.kind} program "
+            f"is {NOT_PORTED}")
+    if spec.family == "recsys":
+        if mesh is None:
+            shape, axes = (((1, 1, 1), ("pod", "data", "model")) if multi_pod
+                           else ((1, 1), ("data", "model")))
+            mesh = Mesh(shape, axes, device=device)
+        cfg, rpf, n_cand = _recsys_variant(spec.config, variant)
+        spec = dataclasses.replace(spec, config=cfg)
+        if cell.kind == "serve":
+            return _recsys_serve_program(spec, cell, mesh, multi_pod)
+        if cell.kind == "retrieval":
+            if rpf and cfg.model == "mind":
+                return _mind_rpf_retrieval_program(spec, cell, mesh,
+                                                   multi_pod)
+            return _recsys_retrieval_program(spec, cell, mesh, multi_pod,
+                                             n_cand)
+    raise ValueError(f"no program for {arch_id}/{cell_name}")
