@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Fourteen paths, each driven through the entry points a user calls, with every
+Fifteen paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -146,6 +146,32 @@ version may have run):
            (kernel D per interest, merged), its overlap with the brute
            max-dot answer, and the device's idle share (profiler) for
            ``serve_p99`` and both retrievals
+  train    the recommenders' ``train_batch`` cells through
+           ``build_cell``: one AdamW step a call (``train/``, plain PyTorch
+           on the card, as the reference's is plain XLA), 20 steps each of
+           MIND at full width (65,536 ``BehaviorStream`` users, the
+           1,000,192 x 64 catalog), AutoInt and Wide&Deep at their full
+           configurations and DLRM-MLPerf with every table capped at
+           2,000,000 rows (at 4,000,000 the parameters, gradients, two
+           moments and updates alone are 62 GB).  Checks: each model's
+           gradient on a 512-example slab (ids -1, past the table and below
+           minus its rows included) against the same port function in
+           float64 on the CPU over the table rows it touches (rtol 1e-4,
+           atol 1e-6 x the gradient's largest magnitude; every other row's
+           gradient exactly 0), one AdamW update against float64, the loss
+           finite and the mean of the last 5 of 20 steps below the first;
+           on MIND a step-10 checkpoint (async save) restored into a fresh
+           state taking step 11 to the same loss (rtol 1e-5),
+           ``make_dp_train_step`` over a one-rank NCCL group equal to
+           ``make_train_step`` (rtol 1e-6), the compressed step finite and
+           descending, and kernel H's forward and the bag's plain backward
+           on the MIND bag against float64; ``launch.train.main`` for MIND
+           and DLRM-MLPerf at ``--preset smoke``.  Printed: ms a step and
+           examples / s (median of 10 after 3), peak device memory, the
+           forward / backward / optimizer device ms (profiler, 5 steps,
+           synced at each phase's end), the idle share over 5 steps, and
+           whether two runs of one step from one state are bit for bit
+           equal (and if not, which leaves differ)
 
 Phases, each printing one JSON line:
 
@@ -200,6 +226,8 @@ Phases, each printing one JSON line:
   recsys   one line per recommender cell (ms, users / s, peak device
            memory, error against float64, launches) and the MIND
            retrievals' line
+  train    one line per train cell and one for the bag's backward and the
+           launcher
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -240,8 +268,10 @@ import ctypes
 import hashlib
 import io
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2760,6 +2790,7 @@ def main():
         from repro_torch.kernels.common import topk_smallest
         from repro_torch.launch import steps
         from repro_torch.models import recsys as rs
+        from repro_torch.tree import tree_map
         check(not torch.backends.cuda.matmul.allow_tf32
               and torch.get_float32_matmul_precision() == "highest",
               "recsys: fp32 products are not IEEE fp32")
@@ -2806,7 +2837,7 @@ def main():
                     out[name], (hist, tgt) = sub(value, [b["hist"],
                                                          b["target"]])
                 else:
-                    out[name] = steps._tree_map(
+                    out[name] = tree_map(
                         lambda t: t.detach().double().cpu(), value)
             b64 = ({"hist": hist, "target": tgt} if cfg.model == "mind"
                    else {"sparse": sparse})
@@ -3044,6 +3075,466 @@ def main():
         return dict(rec_launches)
 
     launches_by_path["recsys"] = recsys_path()
+
+    # ---- path: train (the recommenders' train cells through build_cell) --
+    # one AdamW step a call of CellProgram.fn (train/train_state.py,
+    # optimizer.py), plain PyTorch on the card as the reference's is plain
+    # XLA: MIND at full width (65,536 BehaviorStream users, the 1,000,192 x
+    # 64 catalog), AutoInt and Wide&Deep at their full configurations,
+    # DLRM-MLPerf with every table capped at 2,000,000 rows.  Gates: each
+    # model's gradient on a 512-example slab (ids -1, past the table and
+    # below minus its rows included) against the same port function in
+    # float64 on the CPU over the rows the slab touches (every other row's
+    # gradient exactly 0), one optimizer update against float64, losses
+    # finite and descending over 20 steps; on MIND a checkpoint at step 10
+    # restored into a fresh state taking step 11 to the same loss, a
+    # one-rank NCCL make_dp_train_step equal to make_train_step, the
+    # compressed step descending, kernel H's forward and the bag's backward
+    # against float64; and the train launcher on the card
+    def train_path():
+        import copy
+        import torch.distributed as dist
+        from torch.autograd.profiler import record_function
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        from repro_torch.configs import get_arch
+        from repro_torch.launch import steps
+        from repro_torch.launch import train as train_launcher
+        from repro_torch.models import recsys as rs
+        from repro_torch.train import optimizer as topt
+        from repro_torch.train.train_state import (
+            TrainState, init_train_state, make_dp_train_step,
+            make_train_step, value_and_grad)
+        from repro_torch.tree import (flatten_with_names, leaves, tree_map,
+                                      unflatten)
+        check(not torch.backends.cuda.matmul.allow_tf32
+              and torch.get_float32_matmul_precision() == "highest",
+              "train: fp32 products are not IEEE fp32")
+        rtol64, n_slab, n_steps = 1e-4, 512, 20
+        lr, b1, b2, eps, wd = 1e-3, 0.9, 0.95, 1e-8, 0.1   # the program's
+        tr_launches = collections.Counter()
+        rows = []
+
+        def drive(fn, names, tag):
+            out, launches, ref_calls = counted(torch, counters, fn)
+            require(launches, ref_calls, names, f"train {tag}")
+            tr_launches.update(launches)
+            return out
+
+        def clone(state):
+            return TrainState(state.step.clone(), copy.deepcopy(state.params),
+                              tree_map(torch.clone, state.opt_state),
+                              tree_map(torch.clone, state.residuals))
+
+        def sub_rows(table, cols):
+            """(the rows of ``table`` that the id tensors ``cols`` read, in
+            float64 on the CPU; their indices; ``cols`` re-indexed into that
+            copy so that the gather rule reads the same rows and drops the
+            same ids: past the table becomes past the copy, below minus its
+            rows below minus the copy's)."""
+            n = table.shape[0]
+            idx = [rs.gather_index(c, n) for c in cols]
+            uniq = torch.unique(torch.cat([i.flatten() for i in idx]))
+            m = uniq.numel()
+            out = [torch.where(c >= n, m, torch.where(
+                c < -n, -m - 1, torch.searchsorted(uniq, i))).cpu()
+                for c, i in zip(cols, idx)]
+            return table.detach()[uniq].double().cpu(), uniq, out
+
+        def model64(cfg, model, b):
+            """(the model in float64 on the CPU over the table rows batch
+            ``b`` reads, the batch re-indexed, {table leaf: its rows})."""
+            tree, sel, out = rs.param_tree(model), {}, {}
+            for name, value in tree.items():
+                if name in ("tables", "wide_tables"):
+                    out[name], cols = [], []
+                    for i, t in enumerate(value):
+                        t64, sel[f"{name}/{i}"], (c,) = sub_rows(
+                            t, [b["sparse"][:, i]])
+                        out[name].append(t64)
+                        cols.append(c)
+                    sparse = torch.stack(cols, dim=1)
+                elif name == "item_embed":
+                    out[name], sel[name], (hist, tgt) = sub_rows(
+                        value, [b["hist"], b["target"]])
+                else:
+                    out[name] = tree_map(lambda t: t.detach().double().cpu(),
+                                         value)
+            b64 = ({"hist": hist, "target": tgt} if cfg.model == "mind"
+                   else {"sparse": sparse})
+            if "dense" in b:
+                b64["dense"] = b["dense"].double().cpu()
+            b64["labels"] = b["labels"].double().cpu()
+            m64 = rs.MODELS[cfg.model](cfg, tree_map(
+                lambda t: t.requires_grad_(), out))
+            return m64, b64, sel
+
+        def slab_of(cfg, batch):
+            """The first 512 examples, with edge ids: -1, past the table and
+            below minus its rows."""
+            s = {k: v[:n_slab].clone() for k, v in batch.items()}
+            big = 1 << 30
+            if cfg.model == "mind":
+                s["hist"][0, :3] = torch.tensor([-1, big, -big])
+                s["target"][1], s["target"][2] = big, -big
+            else:
+                s["sparse"][0], s["sparse"][1] = -1, big
+                s["sparse"][2] = -big
+            return s
+
+        def grad_gate(cfg, state, batch, tag):
+            """The card's gradient of the slab's loss against float64."""
+            slab = slab_of(cfg, batch)
+            loss_fn = steps.recsys_loss(cfg)
+            loss, _, grads = value_and_grad(loss_fn, state.params, slab)
+            m64, b64, sel = model64(cfg, state.params, slab)
+            loss64, _, g64 = value_and_grad(loss_fn, m64, b64)
+            check(abs(float(loss) - float(loss64))
+                  <= rtol64 * abs(float(loss64)), f"train {tag}: loss")
+            # atol 1e-6 x the largest magnitude of the whole gradient
+            top = max(float(w.abs().max()) for w in leaves(g64))
+            worst = 0.0
+            for (name, g), w in zip(flatten_with_names(grads), leaves(g64)):
+                if name in sel:
+                    check(int(torch.count_nonzero(
+                        g.index_fill(0, sel[name], 0))) == 0,
+                        f"train {tag}: {name} has a gradient off its rows")
+                    g = g[sel[name]]
+                g = g.double().cpu()
+                err = (g - w).abs()
+                tol = rtol64 * w.abs() + 1e-6 * top
+                k = int((err - tol).argmax())
+                check(bool((err <= tol).all()),
+                      f"train {tag}: {name} gradient {float(g.flatten()[k])}"
+                      f" against {float(w.flatten()[k])} (largest {top})")
+                worst = max(worst, float(err.max()) / top)
+            return grads, sel, worst
+
+        def update_gate(state, grads, sel, tag):
+            """One AdamW update on the card (the state moves) against
+            float64 on the CPU from the same gradient and state, over the
+            slab's rows and 256 others of each table, and every dense
+            leaf."""
+            pick = {}
+            for name, idx in sel.items():
+                n = dict(flatten_with_names(state.params))[name].shape[0]
+                extra = torch.randint(0, n, (256,), device=dev)
+                pick[name] = torch.unique(torch.cat([idx, extra]))
+            gn = torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                for g in leaves(grads)))
+            scale = min(1.0, 1.0 / (float(gn) + 1e-9))
+            t = int(state.opt_state.step) + 1
+            bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+
+            def host(tree):
+                return {n: (x[pick[n]] if n in pick else x).detach()
+                        .double().cpu() for n, x in flatten_with_names(tree)}
+
+            p0, g0 = host(state.params), host(grads)
+            m0, v0 = host(state.opt_state.m), host(state.opt_state.v)
+            opt = topt.adamw(topt.constant_schedule(lr))
+            updates, opt_state = opt.update(grads, state.opt_state,
+                                            state.params)
+            topt.apply_updates(state.params, updates)
+            state = TrainState(state.step + 1, state.params, opt_state, None)
+            p1, m1, v1 = (host(x) for x in (state.params, opt_state.m,
+                                             opt_state.v))
+            worst = 0.0
+            for n in p0:
+                g = g0[n] * scale
+                m_terms = (b1 * m0[n]).abs() + ((1 - b1) * g).abs()
+                m = b1 * m0[n] + (1 - b1) * g
+                v = b2 * v0[n] + (1 - b2) * g * g
+                root = torch.sqrt(v / bc2) + eps
+                upd = -lr * ((m / bc1) / root + wd * p0[n])
+                # each within 1e-5 of the sum of its terms' magnitudes (f32
+                # sums may cancel, m's most), carried through the update;
+                # the parameter through p1 - p0, within p1's rounding to f32
+                for got, want, terms in (
+                        (m1[n], m, m_terms), (v1[n], v, v),
+                        (p1[n] - p0[n], upd,
+                         lr * (m_terms / bc1 / root + wd * p0[n].abs())
+                         + 1.2e-2 * p0[n].abs())):
+                    err = (got - want).abs()
+                    check(bool((err <= 1e-5 * terms + 1e-15).all()),
+                          f"train {tag}: update of {n}: {float(err.max())}")
+                    worst = max(worst, float(err.max()))
+            return state, worst
+
+        def phases(cfg, state, batch, n=5):
+            """Device ms of the forward, the backward and the optimizer a
+            step (the profiler's kernels between syncs at phase ends)."""
+            loss_fn = steps.recsys_loss(cfg)
+            opt = topt.adamw(topt.constant_schedule(lr))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    with record_function("phase:forward"):
+                        loss, _ = loss_fn(state.params, batch)
+                        torch.cuda.synchronize()
+                    with record_function("phase:backward"):
+                        grads = unflatten(state.params, torch.autograd.grad(
+                            loss, leaves(state.params),
+                            materialize_grads=True))
+                        torch.cuda.synchronize()
+                    with record_function("phase:optimizer"):
+                        updates, st = opt.update(
+                            grads, state.opt_state, state.params)
+                        topt.apply_updates(state.params, updates)
+                        state = TrainState(state.step + 1, state.params, st,
+                                           None)
+                        del grads, updates
+                        torch.cuda.synchronize()
+            ranges = [(e.name.split(":")[1], e.time_range.start,
+                       e.time_range.end) for e in prof.events()
+                      if e.name.startswith("phase:")
+                      and e.device_type == DeviceType.CPU]
+            busy = collections.Counter()
+            by_kernel = collections.defaultdict(collections.Counter)
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA \
+                        and not e.name.startswith("phase:"):
+                    s = e.time_range.start
+                    for name, lo, hi in ranges:
+                        if lo <= s <= hi:
+                            ms = e.time_range.elapsed_us() / 1e3 / n
+                            busy[name] += ms
+                            by_kernel[name][e.name[:60]] += ms
+                            break
+            return state, dict(busy), {
+                name: dict(c.most_common(4)) for name, c in by_kernel.items()}
+
+        def train_cell(arch, variant, seed, extra):
+            wall0 = time.perf_counter()
+            held = torch.cuda.memory_allocated()    # the script's, before
+            prog = steps.build_cell(arch, "train_batch", variant=variant,
+                                    device=dev)
+            cfg = steps._recsys_variant(get_arch(arch).config, variant)[0]
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            state, batch = prog.make_args(gen)
+            torch.cuda.synchronize()
+            args_s = time.perf_counter() - t0
+            b = batch["labels"].shape[0]
+            n_params = sum(p.numel() for p in leaves(state.params))
+            grads, sel, g_err = grad_gate(cfg, state, batch, arch)
+            del grads
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ckpt_dir = tempfile.mkdtemp() if extra else None
+            ckpt = Checkpointer(ckpt_dir) if extra else None
+
+            def run(n):
+                nonlocal state
+                out = []
+                for i in range(n):
+                    if ckpt is not None and int(state.step) == 10:
+                        ckpt.save(10, state, block=False)
+                    state, m = prog.fn(state, batch)
+                    out.append(float(m["loss"]))
+                return out
+
+            t0 = time.perf_counter()
+            losses = drive(lambda: run(n_steps), (), f"{arch} steps")
+            steps_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check(all(math.isfinite(x) for x in losses)
+                  and statistics.mean(losses[-5:]) < losses[0],
+                  f"train {arch}: losses {losses}")
+            row = {"arch": arch, "cell": "train_batch", "variant": variant,
+                   "batch": b, "params": n_params, "args_s": args_s,
+                   "losses": losses, "wall_s_20_steps": steps_s,
+                   "peak_device_gb": peak / 1e9,
+                   "cell_peak_gb": (peak - held) / 1e9,
+                   "grad_err_over_largest_vs_f64": g_err, "meta": prog.meta}
+            if extra:      # step 11 from the step-10 checkpoint
+                ckpt.wait()
+                fresh = init_train_state(
+                    rs.INITS[cfg.model](gen, cfg, dev),
+                    topt.adamw(topt.constant_schedule(lr)))
+                check(ckpt.restore_into(fresh) == 10,
+                      "train: the checkpoint is not step 10")
+                _, m = prog.fn(fresh, batch)
+                check(abs(float(m["loss"]) - losses[10])
+                      <= 1e-5 * abs(losses[10]),
+                      f"train: step 11 from the checkpoint: "
+                      f"{float(m['loss'])} against {losses[10]}")
+                row["step11_from_checkpoint"] = [float(m["loss"]),
+                                                 losses[10]]
+                del fresh
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+            def one():
+                nonlocal state
+                state, _ = prog.fn(state, batch)
+
+            ms = time_ms(torch, one, 10, warm=3)
+            row.update({"ms_per_step": ms, "examples_per_s": b / ms * 1e3})
+            state, row["device_ms"], row["top_kernels_ms"] = phases(
+                cfg, state, batch)
+            row["profile"] = idle_share(one, n=5)
+            # two runs of one step from one state
+            twin = clone(state)
+            state, m1 = prog.fn(state, batch)
+            twin, m2 = prog.fn(twin, batch)
+            same = {n: torch.equal(x, y) for (n, x), (_, y) in zip(
+                flatten_with_names(state), flatten_with_names(twin))}
+            row["bitwise_repeat"] = (all(same.values())
+                                     and float(m1["loss"]) == float(
+                                         m2["loss"]))
+            if not row["bitwise_repeat"]:
+                loss_fn = steps.recsys_loss(cfg)
+                (l1, _, g1), (l2, _, g2) = (value_and_grad(
+                    loss_fn, twin.params, batch) for _ in range(2))
+                row["repeat_differs"] = {
+                    "loss": bool(l1 != l2),
+                    "grad_leaves": [n for (n, x), (_, y) in zip(
+                        flatten_with_names(g1), flatten_with_names(g2))
+                        if not torch.equal(x, y)],
+                    "state_leaves": [n for n, v in same.items() if not v]}
+                del g1, g2
+            del twin
+            torch.cuda.empty_cache()
+            # one optimizer update against float64, from the gradient of
+            # the next 512 examples
+            grads, sel, _ = grad_gate(
+                cfg, state, {k: v[n_slab:] for k, v in batch.items()}, arch)
+            state, row["update_max_abs_err_vs_f64"] = update_gate(
+                state, grads, sel, arch)
+            del grads
+            if extra:
+                row.update(dp_gates(cfg, state, batch))
+            row["cell_wall_s"] = time.perf_counter() - wall0
+            emit({"phase": "train", "card": smi, **row})
+            rows.append(row)
+            return state
+
+        def dp_gates(cfg, state, batch):
+            """make_dp_train_step over a one-rank NCCL group against
+            make_train_step; the compressed step descending."""
+            opt = topt.adamw(topt.constant_schedule(lr))
+            loss_fn = steps.recsys_loss(cfg)
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+            try:
+                s1, s2 = clone(state), clone(state)
+                s1, m1 = make_train_step(loss_fn, opt)(s1, batch)
+                s2, m2 = make_dp_train_step(loss_fn, opt)(s2, batch)
+                pairs = list(zip(leaves(s2.params), leaves(s1.params)))
+                err = max(float((x - y).abs().max()) for x, y in pairs)
+                check(abs(float(m2["loss"]) - float(m1["loss"]))
+                      <= 1e-6 * abs(float(m1["loss"]))
+                      and all(torch.allclose(x, y, rtol=1e-6, atol=1e-9)
+                              for x, y in pairs),
+                      f"train: the NCCL dp step differs ({err})")
+                del s1, s2
+                s3 = clone(state)
+                s3 = TrainState(s3.step, s3.params, s3.opt_state,
+                                init_train_state(s3.params, opt,
+                                                 compress=True).residuals)
+                step = make_dp_train_step(loss_fn, opt, compress=True)
+                comp = []
+                for _ in range(6):
+                    s3, m = step(s3, batch)
+                    comp.append(float(m["loss"]))
+                check(all(math.isfinite(x) for x in comp)
+                      and comp[-1] < comp[0],
+                      f"train: compressed losses {comp}")
+                del s3
+                return {"nccl_dp_max_rel_err": err,
+                        "compressed_losses": comp,
+                        "backend": dist.get_backend()}
+            finally:
+                dist.destroy_process_group()
+
+        for seed, (arch, variant, extra) in enumerate((
+                ("mind", "base", True), ("autoint", "base", False),
+                ("wide-deep", "base", False),
+                ("dlrm-mlperf", "rows=2000000", False))):
+            state = train_cell(arch, variant, 50 + seed, extra)
+            if arch == "mind":
+                mind_table = state.params.item_embed
+            del state
+            torch.cuda.empty_cache()
+
+        # kernel H's forward and the bag's backward on the MIND bag (B =
+        # 512, ids -1, past the table and below minus its rows), against
+        # float64 on the CPU; the backward timed at both bag batches
+        rgen = torch.Generator(device=dev).manual_seed(60)
+        n_rows = mind_table.shape[0]
+        tab = mind_table.detach().clone().requires_grad_()
+        del mind_table
+
+        def bag_batch(b, edge):
+            ids = torch.randint(0, bagcfg.ITEM_VOCAB, (b, bagcfg.HIST_LEN),
+                                generator=rgen, device=dev, dtype=torch.int32)
+            w = torch.rand((b, bagcfg.HIST_LEN), generator=rgen, device=dev)
+            if edge:
+                ids[:, 0], ids[:, 1], ids[:, 2] = -1, n_rows + 7, -n_rows - 3
+            return ids, w.requires_grad_()
+
+        bags_t = {name: bag_batch(b, name == "serve_p99")
+                  for name, b in bagcfg.BATCHES.items()}
+        ids, w = bags_t["serve_p99"]
+        g_out = torch.randn((ids.shape[0], tab.shape[1]), generator=rgen,
+                            device=dev)
+        out = drive(lambda: rs.embedding_bag(tab, ids, w), ("embedding_bag",),
+                    "bag")
+        out.backward(g_out)
+        # the reference's bag, take + weighted sum, in float64
+        t64, _, (i64,) = sub_rows(tab, [ids])
+        t64.requires_grad_()
+        w64 = w.detach().double().cpu().requires_grad_()
+        out64 = torch.sum(rs.take_rows(t64, i64) * w64[..., None], dim=1)
+        out64.backward(g_out.double().cpu())
+        sel = torch.unique(rs.gather_index(ids, n_rows))
+        check(int(torch.count_nonzero(tab.grad.index_fill(0, sel, 0))) == 0,
+              "train bag: a table gradient off the bag's rows")
+        bag_errs = {}
+        for tag, got, want in (("forward", out, out64.detach()),
+                               ("table_grad", tab.grad[sel], t64.grad),
+                               ("weight_grad", w.grad, w64.grad)):
+            err = (got.detach().double().cpu() - want).abs()
+            check(bool((err <= rtol64 * want.abs() + 1e-6 * float(
+                want.abs().max())).all()),
+                f"train bag {tag}: {float(err.max())}")
+            bag_errs[tag] = float(err.max())
+        bag_bwd = {}
+        for name, (ids, w) in bags_t.items():
+            out = rs.embedding_bag(tab, ids, w)
+            g = torch.randn_like(out)
+
+            def backward():
+                tab.grad = w.grad = None
+                torch.autograd.backward(out, g, retain_graph=True)
+
+            bag_bwd[name] = time_ms(torch, backward, 10, flush)
+        del tab, bags_t
+        torch.cuda.empty_cache()
+
+        # the train launcher on the card
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            hists = {a: train_launcher.main(
+                ["--arch", a, "--preset", "smoke"] + s)
+                for a, s in (("mind", ["--steps", "20"]),
+                             ("dlrm-mlperf", []))}
+        launcher_s = time.perf_counter() - t0
+        for a, h in hists.items():
+            check(len(h["loss"]) > 0 and all(math.isfinite(x)
+                                              for x in h["loss"]),
+                  f"train launcher {a}: losses {h['loss']}")
+        emit({"phase": "train", "card": smi, "cell": "mind bag",
+              "max_abs_err_vs_f64": bag_errs,
+              "backward_ms": bag_bwd, "batches": dict(bagcfg.BATCHES),
+              "launcher": {a: {"steps": len(h["loss"]),
+                               "first_last_loss": [h["loss"][0],
+                                                   h["loss"][-1]]}
+                           for a, h in hists.items()},
+              "launcher_s": launcher_s})
+        return dict(tr_launches)
+
+    launches_by_path["train"] = train_path()
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

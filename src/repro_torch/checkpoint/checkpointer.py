@@ -11,85 +11,59 @@ sequence positions); its file replaces '/' with '__'.  Writes go to
 the latest checkpoint.
 
 The trees are dicts, NamedTuples, lists and tuples of arrays (numpy, or
-torch tensors, copied to the host).  They flatten as JAX flattens them:
-dict keys sorted, a NamedTuple's fields in declaration order.  ``treedef``
-is informative only: a restore rebuilds the structure from the skeleton it
-is given.
+torch tensors, copied to the host), ``None`` (no leaf) and ``nn.Module``s
+(their parameters' tree), flattened as JAX flattens them (``repro_torch.
+tree``): so a ``TrainState``'s leaves are ``step``, ``params/tables/0``,
+``opt_state/m/bot_mlp/0/w``, ... in both packages.  A leaf of a dtype
+numpy lacks (bfloat16) is stored as f32, a lossless upcast, with its own
+dtype in the manifest, as the reference stores it.  ``treedef`` is
+informative only: a restore rebuilds the structure from the skeleton it is
+given.
+
+``save(..., block=False)`` copies the tree to the host before it returns
+and writes on a background thread; ``wait()`` joins it.
+``install_preemption_handler`` makes SIGTERM set a flag that ``preempted``
+reads and the train loop polls, to checkpoint and exit cleanly.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Any, Optional
+import signal
+import threading
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.tree import (flatten_with_names, leaves, treedef_str,
+                              unflatten_like)
 
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
-def _children(tree) -> list[tuple[str, Any]] | None:
-    """(path entry, child) pairs of an inner node in flattening order, or
-    None for a leaf."""
-    if isinstance(tree, dict):
-        return [(str(k), tree[k]) for k in sorted(tree)]
-    if _is_namedtuple(tree):
-        return list(zip(tree._fields, tree))
-    if isinstance(tree, (list, tuple)):
-        return [(str(i), c) for i, c in enumerate(tree)]
-    return None
+__all__ = ["Checkpointer", "flatten_with_names", "install_preemption_handler",
+           "preempted", "treedef_str", "unflatten_like"]
 
 
-def flatten_with_names(tree, prefix: str = "") -> list[tuple[str, Any]]:
-    """[(leaf name, leaf)] in the reference's flattening order."""
-    kids = _children(tree)
-    if kids is None:
-        return [(prefix, tree)]
-    out = []
-    for key, child in kids:
-        out.extend(flatten_with_names(child, f"{prefix}/{key}" if prefix
-                                      else key))
-    return out
-
-
-def treedef_str(tree) -> str:
-    """The tree's structure in the form JAX prints a ``PyTreeDef``."""
-    def rec(t):
-        if isinstance(t, dict):
-            return "{" + ", ".join(f"'{k}': {rec(t[k])}"
-                                   for k in sorted(t)) + "}"
-        if _is_namedtuple(t):
-            return (f"CustomNode(namedtuple[{type(t).__name__}], ["
-                    + ", ".join(rec(c) for c in t) + "])")
-        if isinstance(t, list):
-            return "[" + ", ".join(rec(c) for c in t) + "]"
-        if isinstance(t, tuple):
-            return "(" + ", ".join(rec(c) for c in t) + ")"
-        return "*"
-    return f"PyTreeDef({rec(tree)})"
-
-
-def unflatten_like(skeleton, leaves: dict[str, Any], prefix: str = ""):
-    """``skeleton``'s structure with each leaf replaced by ``leaves[name]``."""
-    kids = _children(skeleton)
-    if kids is None:
-        return leaves[prefix]
-    built = [unflatten_like(child, leaves, f"{prefix}/{key}" if prefix
-                            else key) for key, child in kids]
-    if isinstance(skeleton, dict):
-        return {key: v for (key, _), v in zip(kids, built)}
-    if _is_namedtuple(skeleton):
-        return type(skeleton)(*built)
-    return type(skeleton)(built)
-
-
-def _host(x) -> np.ndarray:
+def _host(x) -> tuple[np.ndarray, str]:
+    """(a host copy of leaf ``x`` numpy can store, ``x``'s dtype name)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        if x.dtype == torch.bfloat16:
+            return x.detach().to("cpu", torch.float32).numpy(), "bfloat16"
+        a = x.detach().to("cpu", copy=True).numpy()
+    else:
+        a = np.array(x)
+    return a, str(a.dtype)
+
+
+def _stored_dtype(a: np.ndarray, want: Optional[str]) -> np.ndarray:
+    """A loaded array in its saved dtype (left in f32 where numpy has no
+    such dtype, as for bfloat16)."""
+    if want is None or str(a.dtype) == want:
+        return a
+    try:
+        return a.astype(np.dtype(want))
+    except TypeError:
+        return a
 
 
 class Checkpointer:
@@ -99,31 +73,49 @@ class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
+        self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
 
-    def save(self, step: int, tree, extra: Optional[dict] = None) -> str:
-        """Write ``tree`` as step ``step`` (its leaves copied to the host);
-        returns the step's directory."""
-        host = [(n, _host(x)) for n, x in flatten_with_names(tree)]
+    def save(self, step: int, tree, block: bool = True,
+             extra: Optional[dict] = None) -> str:
+        """Write ``tree`` as step ``step`` (its leaves copied to the host
+        before this returns; the files written on a background thread
+        unless ``block``); returns the step's directory."""
+        self.wait()
+        host = [(n,) + _host(x) for n, x in flatten_with_names(tree)]
         path = os.path.join(self.dir, f"step_{step:010d}")
-        tmp = path + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
         manifest = {
             "step": step,
-            "leaves": [{"name": n, "shape": list(a.shape),
-                        "dtype": str(a.dtype)} for n, a in host],
+            "leaves": [{"name": n, "shape": list(a.shape), "dtype": dt}
+                       for n, a, dt in host],
             "treedef": treedef_str(tree),
             "extra": extra or {},
         }
-        for n, a in host:
-            np.save(os.path.join(tmp, n.replace("/", "__") + ".npy"), a)
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        shutil.rmtree(path, ignore_errors=True)
-        os.rename(tmp, path)
-        self._gc()
+
+        def write():
+            tmp = path + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            for n, a, _ in host:
+                np.save(os.path.join(tmp, n.replace("/", "__") + ".npy"), a)
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            shutil.rmtree(path, ignore_errors=True)
+            os.rename(tmp, path)
+            self._gc()
+
+        if block:
+            write()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
         return path
+
+    def wait(self) -> None:
+        """Join the background write of the last ``save``, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
 
     def _gc(self) -> None:
         for s in self.all_steps()[:-self.keep]:
@@ -158,7 +150,34 @@ class Checkpointer:
         leaves = {}
         for name, _ in flatten_with_names(skeleton):
             a = np.load(os.path.join(path, name.replace("/", "__") + ".npy"))
-            want = dtypes.get(name)
-            leaves[name] = (a if want is None or str(a.dtype) == want
-                            else a.astype(np.dtype(want)))
+            leaves[name] = _stored_dtype(a, dtypes.get(name))
         return unflatten_like(skeleton, leaves), step
+
+    def restore_into(self, tree, step: Optional[int] = None) -> int:
+        """Copy step ``step`` (the latest when None) into the tensor leaves
+        of ``tree`` in place, each cast to its leaf's dtype and device (a
+        module's parameters, a train state's moments); returns the step."""
+        restored, step = self.restore(tree, step)
+        with torch.no_grad():
+            for leaf, a in zip(leaves(tree), leaves(restored)):
+                a = np.asarray(a)
+                if a.dtype.name == "bfloat16":   # where numpy knows it
+                    a = a.astype(np.float32)
+                leaf.copy_(torch.from_numpy(a))
+        return step
+
+
+_PREEMPTED = threading.Event()
+
+
+def install_preemption_handler() -> threading.Event:
+    """SIGTERM -> set the flag ``preempted`` reads; the train loop then
+    checkpoints and exits cleanly."""
+    def _handler(signum, frame):
+        _PREEMPTED.set()
+    signal.signal(signal.SIGTERM, _handler)
+    return _PREEMPTED
+
+
+def preempted() -> bool:
+    return _PREEMPTED.is_set()

@@ -13,7 +13,10 @@ manifest instead (``index.load_index``).
 
 ``recsys_from_numpy`` takes a recommender's params tree as numpy arrays --
 for example ``jax.device_get(init_mind(key, cfg))`` -- and returns the
-port's module with the same weights.
+port's module with the same weights.  ``train_state_from_numpy`` takes a
+whole ``TrainState`` so -- ``jax.device_get(state)`` -- and returns the
+port's, its optimizer state an ``AdamState``, a ``FactorState`` or SGDM's
+momentum tree, so that both packages can train from one state.
 """
 from __future__ import annotations
 
@@ -27,6 +30,9 @@ from repro_torch.device import resolve_device
 from repro_torch.index.api import get_backend
 from repro_torch.index.params import IndexSpec
 from repro_torch.models import recsys as rs
+from repro_torch.train.optimizer import AdamState, FactorState
+from repro_torch.train.train_state import TrainState
+from repro_torch.tree import tree_map
 
 _DTYPES = {"proj_idx": torch.int32, "proj_coef": torch.float32,
            "thresh": torch.float32, "child_base": torch.int32,
@@ -107,3 +113,43 @@ def recsys_from_numpy(tree: Mapping[str, Any], cfg=None,
     if cfg is None:
         return rs.TwoTower(params)
     return rs.MODELS[cfg.model](cfg, params)
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A tensor of numpy array ``a`` (bfloat16, which torch cannot take
+    from numpy, through a lossless f32)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def train_state_from_numpy(state, cfg=None,
+                           device: str | torch.device | None = None
+                           ) -> TrainState:
+    """The port's ``TrainState`` from the reference's with numpy leaves,
+    on ``device`` (the GPU unless ``device="cpu"``): the params the
+    recommender ``recsys_from_numpy`` builds for ``cfg``, or where ``cfg``
+    is None a tree of tensors that require gradients; the optimizer state an
+    ``AdamState`` (fields step, m, v), a ``FactorState`` (step, vr, vc) or
+    a momentum tree; the residuals a tree, or None."""
+    dev = resolve_device(device)
+    step, params, opt_state, residuals = state
+
+    def tensors(tree):
+        return tree_map(lambda a: _tensor(a, dev), tree)
+
+    if cfg is None:
+        params = tree_map(lambda a: _tensor(a, dev).requires_grad_(), params)
+    else:
+        params = recsys_from_numpy(params, cfg, dev)
+    fields = getattr(opt_state, "_fields", None)
+    if fields == AdamState._fields:
+        opt_state = AdamState(*(tensors(x) for x in opt_state))
+    elif fields == FactorState._fields:
+        opt_state = FactorState(*(tensors(x) for x in opt_state))
+    else:
+        opt_state = tensors(opt_state)
+    return TrainState(_tensor(step, dev), params, opt_state,
+                      tensors(residuals))

@@ -2,15 +2,22 @@
 (arch x shape-cell x mesh) -> a step function, its arguments' shapes, and
 a way to make them.
 
-For every recsys serve and retrieval cell this builds a ``CellProgram``:
-  * ``fn``, the step (serve / retrieval), run under ``torch.no_grad``;
+For every recsys train, serve and retrieval cell this builds a
+``CellProgram``:
+  * ``fn``, the step: serve and retrieval run under ``torch.no_grad``;
+    train (``fn(state, batch) -> (state, {"loss"})``) takes one AdamW
+    step (``adamw(constant_schedule(1e-3))``) on the reference's BCE with
+    logits, writing the ``TrainState``'s tensors in place;
   * ``args``, ``ShapeDtype`` stand-ins for every input, leaf for leaf the
     reference's ``ShapeDtypeStruct``s (the parameters' shapes are read on
-    the ``meta`` device, so nothing is allocated);
-  * ``meta``, model flops and parameter counts (``_recsys_meta``);
+    the ``meta`` device, so nothing is allocated; a train cell's state is
+    ``TrainState(step, params, AdamState(step, m, v), None)``);
+  * ``meta``, model flops and parameter counts (``_recsys_meta``; a train
+    cell counts three times the forward's flops);
   * ``make_args(generator)``, real arguments on the mesh's device: the
-    model's init drawn from ``generator`` (on that device), batches from
-    the data streams seeded with ``generator.initial_seed()`` (seeded
+    model's init drawn from ``generator`` (on that device) and, for a train
+    cell, its state, batches from the data streams seeded with
+    ``generator.initial_seed()`` (with labels for a train cell; seeded
     uniform ids for a MIND batch over ``STREAM_MAX_BATCH`` users, where
     ``BehaviorStream``'s loop over users would take seconds), candidate
     ids ``arange(n)``, and for ``rpf=1`` the catalog's forest
@@ -19,9 +26,9 @@ For every recsys serve and retrieval cell this builds a ``CellProgram``:
 The reference's ``in_shardings`` place the inputs over a TPU mesh; one
 process has no counterpart.  The mesh is the port's logical
 ``core.sharded_index.Mesh`` (``Mesh((1, 1))`` on the device by default),
-and only the ``rpf=1`` retrieval runs cells on it.  Training cells and the
-``lm`` and ``gnn`` families are not ported yet (ROADMAP.md queue 1 item 9):
-``build_cell`` raises ``NotImplementedError`` for them.
+and only the ``rpf=1`` retrieval runs cells on it.  The ``lm`` and ``gnn``
+families are not ported yet (ROADMAP.md queue 1 item 9): ``build_cell``
+raises ``NotImplementedError`` for them.
 
 ``variant`` is "base" or comma-separated keys: ``rpf=1`` serves MIND's
 ``retrieval_cand`` through the paper's index (the reference's); for one
@@ -48,6 +55,10 @@ from repro_torch.kernels.common import topk_smallest
 from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import recsys as rs
 from repro_torch.models.layers import Axes
+from repro_torch.train.optimizer import AdamState, adamw, constant_schedule
+from repro_torch.train.train_state import (TrainState, init_train_state,
+                                           make_train_step)
+from repro_torch.tree import leaves, tree_map
 
 K_RETRIEVE = 100
 # 1M candidates padded to 2^20 (the reference shards them over 256 and 512
@@ -76,26 +87,9 @@ class CellProgram(NamedTuple):
     make_args: Callable        # (generator) -> real args on the device
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    if isinstance(tree, tuple):
-        vals = [_tree_map(fn, v) for v in tree]
-        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
-    return fn(tree)
-
-
-def _tree_leaves(tree) -> list:
-    out = []
-    _tree_map(out.append, tree)
-    return out
-
-
 def _sds(tree):
     """tensor tree -> ShapeDtype tree."""
-    return _tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), tree)
+    return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), tree)
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -154,10 +148,11 @@ def _recsys_batch(cfg: RecsysConfig, b: int, axes: Optional[Axes],
     return sds
 
 
-def recsys_data(cfg: RecsysConfig, b: int, seed: int, device) -> dict:
-    """A batch of ``b`` on ``device``: ``CTRStream`` for the CTR models,
-    ``BehaviorStream`` for MIND up to ``STREAM_MAX_BATCH`` users and
-    seeded uniform ids past it."""
+def recsys_data(cfg: RecsysConfig, b: int, seed: int, device,
+                train: bool = False) -> dict:
+    """A batch of ``b`` on ``device`` (with its labels for ``train``):
+    ``CTRStream`` for the CTR models, ``BehaviorStream`` for MIND up to
+    ``STREAM_MAX_BATCH`` users and seeded uniform ids past it."""
     if cfg.model != "mind":
         out = CTRStream(cfg.table_sizes, cfg.n_dense, seed=seed,
                         multi_hot=cfg.multi_hot).batch(b)
@@ -170,13 +165,56 @@ def recsys_data(cfg: RecsysConfig, b: int, seed: int, device) -> dict:
                "target": rng.integers(0, cfg.item_vocab, b, dtype=np.int32),
                "labels": np.ones((b,), np.float32)}
     return {k: torch.from_numpy(out[k]).to(device)
-            for k in _recsys_batch(cfg, b, None, train=False)}
+            for k in _recsys_batch(cfg, b, None, train=train)}
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    """The mean binary cross-entropy of ``logits``, written as the
+    reference writes it."""
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def recsys_loss(cfg: RecsysConfig) -> Callable:
+    """``loss_fn(params, batch) -> (loss, {})`` of the model's BCE."""
+    fwd = _recsys_fwd(cfg)
+    return lambda p, b: (bce_with_logits(fwd(p, b), b["labels"]), {})
 
 
 def _top_k(scores: torch.Tensor, k: int):
     """``lax.top_k``: the k largest, descending, ties to the lower index."""
     neg, pos = topk_smallest(-scores, k)
     return -neg, pos.int()
+
+
+def _recsys_train_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
+                          multi_pod: bool) -> CellProgram:
+    cfg: RecsysConfig = spec.config
+    opt = adamw(constant_schedule(1e-3))
+    params_sds = _params_sds(cfg)
+    step_sds = ShapeDtype((), torch.int32)
+    state_sds = TrainState(step_sds, params_sds,
+                           AdamState(step_sds, params_sds, params_sds), None)
+    batch_sds = _recsys_batch(cfg, cell.batch, None, train=True)
+    step = make_train_step(recsys_loss(cfg), opt)
+
+    def train_step(state: TrainState, batch):
+        state, metrics = step(state, batch)
+        return state, {"loss": metrics["loss"]}
+
+    def make_args(generator: torch.Generator):
+        model = _recsys_init(cfg)(generator, mesh.device)
+        return (init_train_state(model, opt),
+                recsys_data(cfg, cell.batch, generator.initial_seed(),
+                            mesh.device, train=True))
+
+    return CellProgram(
+        fn=train_step,
+        args=(state_sds, batch_sds),
+        meta=_recsys_meta(cfg, cell, params_sds),
+        make_args=make_args,
+    )
 
 
 def _recsys_serve_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
@@ -359,7 +397,7 @@ def _recsys_retrieval_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
 
 def _recsys_meta(cfg: RecsysConfig, cell: ShapeCell, params_sds,
                  train: bool = True, flops: Optional[int] = None) -> dict:
-    n_params = int(sum(np.prod(x.shape) for x in _tree_leaves(params_sds)))
+    n_params = int(sum(np.prod(x.shape) for x in leaves(params_sds)))
     b = cell.batch if cell.n_candidates == 0 else cell.n_candidates
     if flops is None:
         # active per example: embedding rows + MLP/attention mults
@@ -428,8 +466,7 @@ def build_cell(arch_id: str, cell_name: str, mesh: Optional[Mesh] = None,
     if cell.skip:
         raise ValueError(f"cell {arch_id}/{cell_name} is skipped: "
                          f"{cell.skip_reason}")
-    if spec.family in ("lm", "gnn") or (spec.family == "recsys"
-                                         and cell.kind == "train"):
+    if spec.family in ("lm", "gnn"):
         raise NotImplementedError(
             f"{arch_id}/{cell_name}: the {spec.family} {cell.kind} program "
             f"is {NOT_PORTED}")
@@ -440,6 +477,8 @@ def build_cell(arch_id: str, cell_name: str, mesh: Optional[Mesh] = None,
             mesh = Mesh(shape, axes, device=device)
         cfg, rpf, n_cand = _recsys_variant(spec.config, variant)
         spec = dataclasses.replace(spec, config=cfg)
+        if cell.kind == "train":
+            return _recsys_train_program(spec, cell, mesh, multi_pod)
         if cell.kind == "serve":
             return _recsys_serve_program(spec, cell, mesh, multi_pod)
         if cell.kind == "retrieval":

@@ -1,0 +1,112 @@
+"""End-to-end training driver (port of ``repro/launch/train.py``), on the
+GPU unless ``--device cpu``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mind \\
+      --preset smoke --steps 50
+
+``--preset smoke`` shrinks the arch to a small config of the same
+structure (``smoke_recsys``); ``--preset full`` uses the registered
+production config.  The recommenders (``mind``, ``dlrm-mlperf``,
+``autoint``, ``wide-deep``) train through ``train/train_loop.train`` with
+AdamW on a cosine schedule (weight decay 0.01) and the reference's BCE:
+checkpoint cadence and resume (``--ckpt-every``, ``--ckpt-dir``; either
+package's checkpoints), the preemption check and the straggler watchdog.
+An ``--arch`` of the ``lm`` or ``gnn`` family exits with "not ported yet"
+(ROADMAP.md queue 1 item 9).  ``main(argv)`` returns the loop's history.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.data.recsys_data import BehaviorStream, CTRStream
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import NOT_PORTED, recsys_loss
+from repro_torch.models import recsys as rs
+from repro_torch.train.optimizer import adamw, cosine_schedule
+from repro_torch.train.train_loop import LoopConfig, train
+from repro_torch.train.train_state import init_train_state, make_train_step
+from repro_torch.tree import leaves
+
+
+def smoke_lm(cfg: LMConfig) -> LMConfig:
+    """Reduced config of the same family (structure preserved)."""
+    return dataclasses.replace(
+        cfg, n_layers=max(2, min(4, cfg.n_layers)), d_model=64,
+        n_heads=min(cfg.n_heads, 4),
+        n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16, d_ff=128,
+        vocab_size=512, n_experts=min(cfg.n_experts, 8) if cfg.moe else 0,
+        sliding_window=min(cfg.sliding_window, 8) if cfg.sliding_window else 0,
+        global_every=min(cfg.global_every, 2) if cfg.global_every else 0,
+        param_dtype="float32", compute_dtype="float32", fsdp=False,
+        remat=False)
+
+
+def smoke_recsys(cfg: RecsysConfig) -> RecsysConfig:
+    return dataclasses.replace(
+        cfg, table_sizes=tuple(min(s, 1000) for s in cfg.table_sizes),
+        item_vocab=min(cfg.item_vocab, 5000) if cfg.item_vocab else 0,
+        row_pad_to=8)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", required=True)
+    p.add_argument("--preset", choices=["smoke", "full"], default="smoke")
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-every", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="where the model trains (cuda, or cpu for the "
+                        "plain PyTorch versions)")
+    args = p.parse_args(argv)
+
+    spec = get_arch(args.arch)
+    if spec.family != "recsys":
+        raise SystemExit(f"[train] {args.arch}: the {spec.family} train "
+                         f"program is {NOT_PORTED}")
+    dev = resolve_device(None if args.device == "cuda" else args.device)
+    # fp32 products are IEEE fp32, as the reference's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = adamw(cosine_schedule(args.lr, 10, args.steps), weight_decay=0.01)
+    lcfg = LoopConfig(total_steps=args.steps, log_every=10,
+                      ckpt_every=args.ckpt_every,
+                      ckpt_dir=args.ckpt_dir or os.path.join(
+                          tempfile.gettempdir(), f"repro_{args.arch}"))
+
+    cfg = smoke_recsys(spec.config) if args.preset == "smoke" \
+        else spec.config
+    model = rs.INITS[cfg.model](torch.Generator(device=dev).manual_seed(0),
+                                cfg, dev)
+    print(f"[train] {args.arch}: "
+          f"{sum(x.numel() for x in leaves(model)):,} params on {dev}")
+    if cfg.model == "mind":
+        stream = BehaviorStream(cfg.item_vocab, cfg.hist_len, seed=0)
+    else:
+        stream = CTRStream(cfg.table_sizes, cfg.n_dense, seed=0)
+    state = init_train_state(model, opt)
+    step = make_train_step(recsys_loss(cfg), opt)
+
+    def batches():
+        while True:
+            yield {k: torch.from_numpy(v).to(dev)
+                   for k, v in stream.batch(args.batch).items()}
+
+    state, hist = train(state, step, batches(), lcfg)
+    if hist["loss"]:
+        print(f"[train] done: loss {hist['loss'][0]:.4f} -> "
+              f"{hist['loss'][-1]:.4f} over {len(hist['loss'])} steps; "
+              f"stragglers={len(hist['straggler_events'])}")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

@@ -13,9 +13,10 @@ each module's ``forward`` calls its function.  Every product stays in f32.
 
 Gathers follow the reference's rule (``take_rows``): an id below 0 wraps
 once by the table's rows, then every id is clamped into the table, as
-``table[ids]`` under jit reads.  ``embedding_bag`` is kernel H
+``table[ids]`` under jit reads; its gradient drops every id the forward
+clamped, as the reference's scatter does.  ``embedding_bag`` is kernel H
 (``kernels/ops.embedding_bag``); H reads id -1 as "no row", so ids pass
-through the same rule first.
+through the same rule first, and its backward is plain PyTorch.
 
 The reference's ``*_specs`` and ``table_specs`` place the tables over a
 TPU mesh's axes; one process has no counterpart, and the port leaves them
@@ -33,6 +34,7 @@ from repro_torch.configs.base import RecsysConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, normal
+from repro_torch.tree import module_tree
 
 F32 = torch.float32
 
@@ -80,21 +82,7 @@ class MLP(nn.ModuleList):
 def param_tree(model: nn.Module) -> dict:
     """The reference's params tree of ``model``: nested dicts (and lists
     where the names are 0, 1, ...) of its parameters."""
-    tree: dict = {}
-    for name, p in model.named_parameters():
-        node, parts = tree, name.split(".")
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = p
-    return _as_lists(tree)
-
-
-def _as_lists(node):
-    if not isinstance(node, dict):
-        return node
-    if node and all(k.isdigit() for k in node):
-        return [_as_lists(node[str(i)]) for i in range(len(node))]
-    return {k: _as_lists(v) for k, v in node.items()}
+    return module_tree(model)
 
 
 def _mlp_init(generator, dims: tuple[int, ...], device: torch.device) -> list:
@@ -116,20 +104,87 @@ def gather_index(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
     return torch.where(ids < 0, ids + n_rows, ids).clamp_(0, n_rows - 1)
 
 
+def gather_kept(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Whether each id's gradient reaches its row: the reference's gather
+    transposes to a scatter that drops every id the forward clamped (past
+    the table, or below ``-n_rows``); an id that wrapped into range keeps
+    it."""
+    return (ids >= -n_rows) & (ids < n_rows)
+
+
+def _scatter_rows(n_rows: int, idx: torch.Tensor, kept: torch.Tensor,
+                  g: torch.Tensor) -> torch.Tensor:
+    """(n_rows, D) sum of the rows ``g`` (idx.shape + (D,)) into ``idx``
+    where ``kept`` (elsewhere a zero is added, which leaves the sum's bits
+    alone).  The sum is ``nn.Embedding``'s backward: it sorts the ids and
+    sums each id's run in parallel pieces, where ``index_put_``'s
+    accumulate walks a run one row at a time, which serializes on the
+    skewed ids of ``CTRStream`` (a quarter of a field's ids are its row 0)."""
+    g = torch.where(kept[..., None], g, 0)
+    return torch.ops.aten.embedding_dense_backward(g, idx, n_rows, -1, False)
+
+
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]``, whose backward drops the ids the forward clamped."""
+
+    @staticmethod
+    def forward(ctx, table, idx, kept):
+        ctx.save_for_backward(idx, kept)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, kept = ctx.saved_tensors
+        return _scatter_rows(ctx.n_rows, idx, kept, g), None, None
+
+
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` as the reference reads it (``gather_index``)."""
-    return table[gather_index(ids, table.shape[0])]
+    """``table[ids]`` as the reference reads it (``gather_index``) and
+    differentiates it: the table's gradient takes no part from an id the
+    forward clamped (``gather_kept``)."""
+    n = table.shape[0]
+    if not (table.requires_grad and torch.is_grad_enabled()):
+        return table[gather_index(ids, n)]
+    return _TakeRows.apply(table, gather_index(ids, n), gather_kept(ids, n))
+
+
+class _Bag(torch.autograd.Function):
+    """Kernel H's forward (its plain version on the CPU) with the backward
+    of the reference's take + weighted sum, which has no Pallas backward:
+    XLA differentiates it.  So the backward is plain PyTorch on every
+    device: the table's gradient adds ``w[b, h] g[b]`` into row
+    ``idx[b, h]`` where the id is kept, the weights' is ``<g[b],
+    table[idx[b, h]]>``."""
+
+    @staticmethod
+    def forward(ctx, table, idx, kept, weights):
+        ctx.save_for_backward(table, idx, kept, weights)
+        return ops.embedding_bag(idx.int(), weights.contiguous(),
+                                 table.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        table, idx, kept, weights = ctx.saved_tensors
+        d_table = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_table = _scatter_rows(table.shape[0], idx, kept,
+                                    weights[..., None] * g[:, None, :])
+        if ctx.needs_input_grad[3]:
+            d_w = torch.einsum("bhd,bd->bh", table[idx], g)
+        return d_table, None, None, d_w
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """take + weighted segment-sum bag. ids (B, H) -> (B, D), kernel H
-    (weights of 1 where none are given)."""
-    idx = gather_index(ids, table.shape[0]).int()
+    (weights of 1 where none are given), differentiable in the table and
+    the weights under ``take_rows``'s rule."""
+    n = table.shape[0]
     if weights is None:
         weights = torch.ones(ids.shape, dtype=F32, device=ids.device)
-    return ops.embedding_bag(idx, weights.float().contiguous(),
-                             table.detach().float().contiguous())
+    return _Bag.apply(table.float(), gather_index(ids, n),
+                      gather_kept(ids, n), weights.float())
 
 
 def init_tables(generator, cfg: RecsysConfig, device=None) -> list:
