@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Fifteen paths, each driven through the entry points a user calls, with every
+Sixteen paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -172,6 +172,38 @@ version may have run):
            synced at each phase's end), the idle share over 5 steps, and
            whether two runs of one step from one state are bit for bit
            equal (and if not, which leaves differ)
+  lm       the dense language models through ``build_cell`` at full
+           width, seeded weights and ``MarkovTokens`` (``models/
+           transformer.py``, plain PyTorch on the card as the reference's
+           is plain XLA): smollm-135m ``prefill_32k`` (``attn=blockwise``,
+           batch 1 of 32), ``decode_32k`` (batch 64 of 128: a 48.3 GB bf16
+           cache read whole each step) and ``train_4k`` (batch 8 of 256);
+           gemma3-4b at ``nl=6`` (five 1024-token windows, then one global
+           layer) ``prefill_32k`` (blockwise, batch 1), ``decode_32k``
+           (batch 8), ``long_500k`` (batch 1) and ``train_4k`` (batch 2:
+           the chunked CE over 262,144 logits, remat); stablelm-12b at
+           ``nl=2`` ``decode_32k`` (batch 8).  Checks: prefill over a
+           2,048-token prompt equal to ``forward``'s last position and one
+           decode step to its next (smollm-135m and gemma3-4b ``nl=6`` in
+           f32 compute, rtol / atol 2e-3); blockwise attention equal to
+           dense (f32 atol 1e-5; bf16 within 4 bf16 units of the largest
+           output); the gradients of a small f32 LM within rtol 1e-4 (atol
+           1e-6 x the largest) of float64 on the CPU, dense and chunked
+           CE; the train cells' losses descending on their one batch.
+           Then the kNN-LM datastore (``examples/knn_lm_torch.py`` at full
+           width): smollm-135m trained 300 steps at 16 x 64, the unit
+           hidden states of 4,096 x 64 positions (262,144 x 576) on
+           ``rpf`` (40 trees, C = 12), 1,024 held-out positions searched
+           under cosine at k = 8, P = 1 and 4 (kernels A and B), against
+           ``mode="ref"`` by the compare rule, recall(P = 4) >= recall(P =
+           1).  Printed: ms (CUDA events, median), tokens / s, peak device
+           memory, the device's idle share (profiler), ``model_flops`` as
+           a share of the bf16 peak, decode's bytes bound (cache plus
+           parameters in bf16 over the memory rate), whether two runs of
+           one train step are bit for bit equal; the datastore's recall@8
+           against exact cosine, next-token accuracy at lambda 0, 0.3 and
+           0.6, search ms and build seconds; the two routes to f32 scores
+           from bf16 operands (``bmm(out_dtype=f32)`` and an upcast)
 
 Phases, each printing one JSON line:
 
@@ -228,6 +260,8 @@ Phases, each printing one JSON line:
            retrievals' line
   train    one line per train cell and one for the bag's backward and the
            launcher
+  lm       the gates' line, one line per LM cell and the kNN-LM
+           datastore's line
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -3085,7 +3119,9 @@ def main():
     # model's gradient on a 512-example slab (ids -1, past the table and
     # below minus its rows included) against the same port function in
     # float64 on the CPU over the rows the slab touches (every other row's
-    # gradient exactly 0), one optimizer update against float64, losses
+    # gradient exactly 0), float64 taking the card's branch at every ReLU
+    # whose input the two put on either side of 0 (each ReLU's input within
+    # 1e-4 of its largest), one optimizer update against float64, losses
     # finite and descending over 20 steps; on MIND a checkpoint at step 10
     # restored into a fresh state taking step 11 to the same loss, a
     # one-rank NCCL make_dp_train_step equal to make_train_step, the
@@ -3182,13 +3218,51 @@ def main():
                 s["sparse"][2] = -big
             return s
 
+        class ReluBranches(torch.overrides.TorchFunctionMode):
+            """Each ``torch.relu``'s input, in call order.  Given ``card``
+            (the record of the card's run), ``relu(x)`` is ``x`` times the
+            card's mask ``x > 0``, so that float64 differentiates the branch
+            the card took: ReLU's derivative jumps at 0, and an input within
+            rounding of 0 may fall on either side in f32 and float64."""
+
+            def __init__(self, card=None):
+                super().__init__()
+                self.card, self.inputs = card, []
+
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if func is not torch.relu:
+                    return func(*args, **(kwargs or {}))
+                x = args[0]
+                self.inputs.append(x.detach())
+                if self.card is None:
+                    return func(x)
+                mask = self.card.inputs[len(self.inputs) - 1] > 0
+                return x * mask.to(x.device, x.dtype)
+
         def grad_gate(cfg, state, batch, tag):
-            """The card's gradient of the slab's loss against float64."""
+            """The card's gradient of the slab's loss against float64 on
+            the card's ReLU branches; (gradient, table rows, largest error
+            over the largest gradient, ReLU inputs on either side of 0)."""
             slab = slab_of(cfg, batch)
             loss_fn = steps.recsys_loss(cfg)
-            loss, _, grads = value_and_grad(loss_fn, state.params, slab)
+            card = ReluBranches()
+            with card:
+                loss, _, grads = value_and_grad(loss_fn, state.params, slab)
             m64, b64, sel = model64(cfg, state.params, slab)
-            loss64, _, g64 = value_and_grad(loss_fn, m64, b64)
+            host = ReluBranches(card)
+            with host:
+                loss64, _, g64 = value_and_grad(loss_fn, m64, b64)
+            check(len(host.inputs) == len(card.inputs),
+                  f"train {tag}: {len(card.inputs)} ReLUs on the card, "
+                  f"{len(host.inputs)} in float64")
+            flips = 0
+            for i, (x, x64) in enumerate(zip(card.inputs, host.inputs)):
+                x = x.double().cpu()
+                err = float((x - x64).abs().max())
+                check(err <= rtol64 * float(x64.abs().max()),
+                      f"train {tag}: ReLU {i}'s input differs by {err}")
+                flips += int(torch.count_nonzero((x > 0) != (x64 > 0)))
+            del card, host
             check(abs(float(loss) - float(loss64))
                   <= rtol64 * abs(float(loss64)), f"train {tag}: loss")
             # atol 1e-6 x the largest magnitude of the whole gradient
@@ -3208,7 +3282,7 @@ def main():
                       f"train {tag}: {name} gradient {float(g.flatten()[k])}"
                       f" against {float(w.flatten()[k])} (largest {top})")
                 worst = max(worst, float(err.max()) / top)
-            return grads, sel, worst
+            return grads, sel, worst, flips
 
         def update_gate(state, grads, sel, tag):
             """One AdamW update on the card (the state moves) against
@@ -3317,7 +3391,7 @@ def main():
             args_s = time.perf_counter() - t0
             b = batch["labels"].shape[0]
             n_params = sum(p.numel() for p in leaves(state.params))
-            grads, sel, g_err = grad_gate(cfg, state, batch, arch)
+            grads, sel, g_err, flips = grad_gate(cfg, state, batch, arch)
             del grads
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3346,7 +3420,8 @@ def main():
                    "losses": losses, "wall_s_20_steps": steps_s,
                    "peak_device_gb": peak / 1e9,
                    "cell_peak_gb": (peak - held) / 1e9,
-                   "grad_err_over_largest_vs_f64": g_err, "meta": prog.meta}
+                   "grad_err_over_largest_vs_f64": g_err,
+                   "relu_inputs_across_0": [flips], "meta": prog.meta}
             if extra:      # step 11 from the step-10 checkpoint
                 ckpt.wait()
                 fresh = init_train_state(
@@ -3397,8 +3472,9 @@ def main():
             torch.cuda.empty_cache()
             # one optimizer update against float64, from the gradient of
             # the next 512 examples
-            grads, sel, _ = grad_gate(
+            grads, sel, _, flips = grad_gate(
                 cfg, state, {k: v[n_slab:] for k, v in batch.items()}, arch)
+            row["relu_inputs_across_0"].append(flips)
             state, row["update_max_abs_err_vs_f64"] = update_gate(
                 state, grads, sel, arch)
             del grads
@@ -3535,6 +3611,325 @@ def main():
         return dict(tr_launches)
 
     launches_by_path["train"] = train_path()
+
+    # ---- path: lm (the dense language models through build_cell) ---------
+    # smollm-135m (prefill_32k blockwise at batch 1, decode_32k at 64,
+    # train_4k at 8), gemma3-4b at nl=6 (prefill_32k blockwise at 1,
+    # decode_32k at 8, long_500k at 1, train_4k at 2) and stablelm-12b at
+    # nl=2 (decode_32k at 8), full width, seeded weights and MarkovTokens;
+    # plain PyTorch on the card, as the reference's are plain XLA.  Gates:
+    # prefill (last_only) over a 2,048-token prompt equal to forward's last
+    # position and one decode step to forward's next, in f32 compute (the
+    # reference's rtol / atol 2e-3); blockwise attention equal to dense
+    # (f32: atol 1e-5; bf16: 4 bf16 units of the largest output); the
+    # gradients of a small f32 LM within rtol 1e-4 of float64; the train
+    # cells' losses descending on their one batch.  Then the kNN-LM
+    # datastore: smollm-135m trained as examples/knn_lm_torch.py trains
+    # (300 steps of MarkovTokens(49152, branch=8) at 16 x 64), the hidden
+    # states of 4,096 x 64 positions (unit rows) indexed on rpf (40 trees,
+    # C = 12) and 1,024 held-out positions searched under cosine at P = 1
+    # and 4 (kernels A and B), against mode="ref" by the compare rule, with
+    # recall(P = 4) >= recall(P = 1)
+    def lm_path():
+        import copy
+        import dataclasses
+        from repro_torch.configs import get_arch
+        from repro_torch.configs.base import LMConfig
+        from repro_torch.data.lm_data import MarkovTokens
+        from repro_torch.launch import steps
+        from repro_torch.models import attention as attn_mod
+        from repro_torch.models import transformer as tr
+        from repro_torch.train.optimizer import adamw, cosine_schedule
+        from repro_torch.train.train_loop import LoopConfig, train
+        from repro_torch.train.train_state import (
+            TrainState, init_train_state, make_train_step, value_and_grad)
+        from repro_torch.tree import (flatten_with_names, leaves,
+                                      module_tree, tree_map)
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "lm: fp32 products are not IEEE fp32")
+        bf16_peak, hbm = 989e12, mem_rate(card)
+        knn_steps, knn_seqs, knn_batch = 300, 4096, 512
+        cells = (  # arch, cell, variant, timed runs, warm-up runs
+            ("smollm-135m", "prefill_32k", "attn=blockwise,batch=1", 2, 0),
+            ("smollm-135m", "decode_32k", "batch=64", 10, 2),
+            ("smollm-135m", "train_4k", "batch=8", 3, 0),
+            ("gemma3-4b", "prefill_32k", "nl=6,attn=blockwise,batch=1", 3, 0),
+            ("gemma3-4b", "decode_32k", "nl=6,batch=8", 10, 2),
+            ("gemma3-4b", "long_500k", "nl=6,batch=1", 10, 2),
+            ("gemma3-4b", "train_4k", "nl=6,batch=2", 3, 0),
+            ("stablelm-12b", "decode_32k", "nl=2,batch=8", 10, 2))
+        lm_launches = collections.Counter()
+        gen = torch.Generator(device=dev)
+
+        def lm_cfg(arch, variant):
+            rest, _ = steps._lm_batch_variant(variant)
+            return steps._apply_lm_variant(get_arch(arch).config, rest)
+
+        def max_err(got, want):
+            return float((got.double() - want.double()).abs().max())
+
+        # 1. prefill and decode against forward, f32 compute
+        gate_errs = {}
+        for arch, variant, b in (("smollm-135m", "base", 2),
+                                 ("gemma3-4b", "nl=6", 1)):
+            cfg = dataclasses.replace(lm_cfg(arch, variant),
+                                      compute_dtype="float32")
+            model = tr.init_lm(gen.manual_seed(3), cfg, dev)
+            tok = torch.from_numpy(MarkovTokens(cfg.vocab_size, seed=3)
+                                   .sample(b, 2048)).to(dev)
+            with torch.no_grad():
+                full = tr.forward(model, tok, cfg)[0]
+                cache = tr.init_cache(cfg, b, 2049, torch.float32, dev)
+                pre, cache = tr.decode_step(model, cache, tok[:, :2048], 0,
+                                            cfg, last_only=True)
+                nxt, _ = tr.decode_step(model, cache, tok[:, 2048:], 2048,
+                                        cfg)
+            for tag, got, want in (("prefill", pre[:, 0], full[:, 2047]),
+                                   ("decode", nxt[:, 0], full[:, 2048])):
+                check(bool(torch.allclose(got, want, rtol=2e-3, atol=2e-3)),
+                      f"lm {arch} {tag} against forward: "
+                      f"{max_err(got, want)}")
+                gate_errs[f"{arch} {tag}"] = max_err(got, want)
+            del model, full, cache
+            torch.cuda.empty_cache()
+
+        # 2. blockwise attention against dense on the same inputs, and the
+        # two routes of f32 scores from bf16 operands
+        blk_errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(1, 4096, 9, 64, generator=gen.manual_seed(4),
+                            device=dev).to(dtype)
+            k, v = (torch.randn(1, 4096, 3, 64, generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            pos = torch.arange(4096, dtype=torch.int32, device=dev)
+            for window, softcap in ((0, 0.0), (1024, 50.0)):
+                dense = attn_mod._sdpa(q, k, v,
+                                       attn_mod._mask(pos, pos, window),
+                                       softcap).float()
+                blk = attn_mod._sdpa_blockwise(q, k, v, pos, pos, window,
+                                               softcap, 1024).float()
+                tol = 1e-5 if dtype == torch.float32 \
+                    else 2.0 ** -6 * float(dense.abs().max())
+                err = max_err(blk, dense)
+                check(err <= tol, f"lm blockwise against dense "
+                                  f"({dtype}, window {window}): {err}")
+                blk_errs[f"{str(dtype)[6:]} window {window}"] = err
+        qs = torch.randn(64 * 3, 3, 64, generator=gen, device=dev).to(
+            torch.bfloat16)
+        ks = torch.randn(64 * 3, 64, 32768, generator=gen, device=dev).to(
+            torch.bfloat16)
+        with torch.no_grad():
+            out_dtype = torch.bmm(qs, ks, out_dtype=torch.float32)
+        upcast = torch.bmm(qs.float(), ks.float())
+        scores_route = {
+            "max_abs_err_out_dtype_vs_upcast": max_err(out_dtype, upcast),
+            "out_dtype_ms": time_ms(torch, lambda: torch.bmm(
+                qs, ks, out_dtype=torch.float32), 10),
+            "upcast_ms": time_ms(torch, lambda: torch.bmm(
+                qs.float(), ks.float()), 10),
+            "shape": "decode_32k smollm, one layer: (192, 3, 64) x "
+                     "(192, 64, 32768) bf16"}
+        check(scores_route["max_abs_err_out_dtype_vs_upcast"] <= 1e-4,
+              f"lm f32 scores: {scores_route}")
+        del qs, ks, out_dtype, upcast, q, k, v, dense, blk
+        torch.cuda.empty_cache()
+
+        # 3. the gradients of a small f32 LM against float64 on the CPU
+        gcfg = LMConfig(name="grad", n_layers=4, d_model=128, n_heads=4,
+                        n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=1000,
+                        sliding_window=8, global_every=2, logit_softcap=30.0,
+                        param_dtype="float32", compute_dtype="float32")
+        g64cfg = dataclasses.replace(gcfg, param_dtype="float64",
+                                     compute_dtype="float64")
+        model = tr.init_lm(gen.manual_seed(5), gcfg, dev)
+        m64 = tr.LM(g64cfg, tree_map(
+            lambda t: t.detach().double().cpu().requires_grad_(),
+            module_tree(model)))
+        batch = steps.lm_tokens(gcfg, 4, 64, 5, dev)
+        b64 = {k_: v_.cpu() for k_, v_ in batch.items()}
+        grad_errs = {}
+        for chunk in (0, 16):
+            loss, _, g = value_and_grad(lambda p, b_: tr.loss_fn(
+                p, b_, gcfg, logit_chunk=chunk), model, batch)
+            loss64, _, g64 = value_and_grad(lambda p, b_: tr.loss_fn(
+                p, b_, g64cfg, logit_chunk=chunk), m64, b64)
+            check(abs(float(loss) - float(loss64)) <= 1e-4 * abs(
+                float(loss64)), f"lm grad gate loss {float(loss)} "
+                                f"{float(loss64)}")
+            top = max(float(w.abs().max()) for w in leaves(g64))
+            worst = 0.0
+            for (name, x), w in zip(flatten_with_names(g), leaves(g64)):
+                x = x.double().cpu()
+                check(bool(torch.allclose(x, w, rtol=1e-4, atol=1e-6 * top)),
+                      f"lm gradient {name} (chunk {chunk}): "
+                      f"{max_err(x, w)}")
+                worst = max(worst, max_err(x, w) / top)
+            grad_errs[f"chunk {chunk}"] = worst
+        del model, m64
+        emit({"phase": "lm", "card": smi, "gates": {
+            "prefill_decode_vs_forward_max_abs_err": gate_errs,
+            "blockwise_vs_dense_max_abs_err": blk_errs,
+            "f32_scores": scores_route,
+            "grad_vs_f64_max_abs_err_over_top": grad_errs}})
+
+        # 4. the cells
+        for arch, cell, variant, reps, warm in cells:
+            cfg = lm_cfg(arch, variant)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            prog = steps.build_cell(arch, cell, variant=variant, device=dev)
+            t0 = time.perf_counter()
+            args = prog.make_args(gen.manual_seed(0))
+            torch.cuda.synchronize()
+            args_s = time.perf_counter() - t0
+            losses = []
+
+            def call():
+                out = prog.fn(*args)
+                if prog.meta["kind"] == "train":
+                    losses.append(out[1]["loss"])
+
+            def drive():
+                # the profiled calls warm up the timed ones
+                idle_ = idle_share(call, 1 if "prefill" in cell else 2)
+                return time_ms(torch, call, reps, warm=warm), idle_
+
+            (ms, idle), launches, ref_calls = counted(torch, counters, drive)
+            require(launches, ref_calls, (), f"lm {arch} {cell}")
+            lm_launches.update(launches)
+            peak = torch.cuda.max_memory_allocated()
+            meta = prog.meta
+            row = {"phase": "lm", "card": smi, "arch": arch, "cell": cell,
+                   "variant": variant, "kind": meta["kind"],
+                   "n_layers": cfg.n_layers, "params": meta["params_total"],
+                   "ms": ms, "tokens_per_s": meta["n_tokens"] / ms * 1e3,
+                   "model_flops": meta["model_flops"],
+                   "flops_share_of_bf16_peak":
+                       meta["model_flops"] / (ms / 1e3) / bf16_peak,
+                   "peak_gb": peak / 1e9, "held_before_gb": held / 1e9,
+                   "make_args_s": args_s, **idle}
+            if meta["kind"] == "decode":
+                cache_bytes = sum(t.nbytes for t in args[1])
+                param_bytes = meta["params_total"] * 2    # bf16 compute
+                row.update(cache_gb=cache_bytes / 1e9,
+                           bytes_bound_ms=(cache_bytes + param_bytes)
+                           / hbm * 1e3)
+                row["bound_share"] = row["bytes_bound_ms"] / ms
+            if meta["kind"] == "train":
+                ls = [float(x) for x in losses]
+                check(all(math.isfinite(x) for x in ls) and ls[-1] < ls[0],
+                      f"lm {arch} train: losses {ls}")
+                state = args[0]
+
+                def one_step(st):
+                    st = TrainState(st.step.clone(), copy.deepcopy(st.params),
+                                    tree_map(torch.clone, st.opt_state),
+                                    None)
+                    prog.fn(st, args[1])
+                    return st
+                a_, b_ = one_step(state), one_step(state)
+                differ = [n for (n, x), y in zip(flatten_with_names(a_),
+                                                 leaves(b_))
+                          if not torch.equal(x, y)]
+                row.update(losses=ls, two_runs_bit_for_bit=not differ,
+                           leaves_that_differ=differ)
+                del a_, b_, state
+            emit(row)
+            del prog, args
+        torch.cuda.empty_cache()
+
+        # 5. the kNN-LM datastore on the paper's index; remat off, as the
+        # example's config sets it (16 x 64 tokens need no recompute)
+        cfg = dataclasses.replace(get_arch("smollm-135m").config,
+                                  remat=False)
+        data = MarkovTokens(cfg.vocab_size, branch=8, seed=0)
+        model = tr.init_lm(gen.manual_seed(0), cfg, dev)
+        opt = adamw(cosine_schedule(3e-3, 20, 400))
+        step = make_train_step(lambda p, b_: tr.loss_fn(p, b_, cfg), opt)
+
+        def token_batches():
+            for b_ in data.batches(16, 64):
+                yield {k_: torch.from_numpy(v_).to(dev)
+                       for k_, v_ in b_.items()}
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state, hist = train(init_train_state(model, opt), step,
+                                token_batches(),
+                                LoopConfig(total_steps=knn_steps,
+                                           log_every=100))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+
+        def unit_rows(tokens):
+            with torch.no_grad():
+                h = tr.forward_hidden(state.params, tokens, cfg)[0]
+            rows_ = h.float().reshape(-1, cfg.d_model)
+            return rows_ / (torch.linalg.norm(rows_, dim=1, keepdim=True)
+                            + 1e-9)
+
+        mem = torch.from_numpy(data.sample(knn_seqs, 64)).to(dev)
+        keys = torch.cat([unit_rows(mem[lo:lo + knn_batch, :-1])
+                          for lo in range(0, knn_seqs, knn_batch)])
+        vals = mem[:, 1:].reshape(-1)
+        t0 = time.perf_counter()
+        kindex = build_index(keys, IndexSpec(
+            backend="rpf", forest=ForestConfig(n_trees=40, capacity=12),
+            seed=2), device=dev)
+        torch.cuda.synchronize()
+        kbuild_s = time.perf_counter() - t0
+        test = torch.from_numpy(data.sample(16, 64)).to(dev)
+        q = unit_rows(test[:, :-1])
+
+        def drive_knn():
+            return {p: kindex.search(q, SearchParams(
+                k=8, n_probes=p, metric="cosine")) for p in PROBES}
+
+        res, launches, ref_calls = counted(torch, counters, drive_knn)
+        require(launches, ref_calls, ("forest_traverse", "fused_gather_topk"),
+                "lm knn")
+        lm_launches.update(launches)
+        _, exact_ids = exact_knn(q, keys, 8, metric="cosine")
+        recall, knn_err = {}, 0.0
+        for p, got in res.items():
+            want = kindex.search(q, SearchParams(k=9, n_probes=p,
+                                                 metric="cosine", mode="ref"))
+            knn_err = max(knn_err, compare_topk(torch, got, want, 8))
+            check_scores(torch, METRICS["cosine"], q, keys, got)
+            recall[p] = recall_at_k(got[1], exact_ids)
+        check(recall[4] >= recall[1], f"lm knn recall {recall}")
+        search_ms = {p: time_ms(torch, lambda p=p: kindex.search(
+            q, SearchParams(k=8, n_probes=p, metric="cosine")), 10)
+            for p in PROBES}
+        # the example's interpolation, at P = 1 as the example searches
+        d, ids = res[1]
+        with torch.no_grad():
+            lm_probs = torch.softmax(tr.forward(state.params, test[:, :-1],
+                                                cfg)[0], dim=-1)
+        lm_probs = lm_probs.reshape(-1, cfg.padded_vocab)
+        w = torch.exp(-d * 10.0) * (ids >= 0)
+        knn_probs = torch.zeros_like(lm_probs).scatter_add_(
+            1, vals[ids.clamp_min(0).long()].long(), w)
+        knn_probs /= knn_probs.sum(1, keepdim=True) + 1e-9
+        truth = test[:, 1:].reshape(-1)
+        acc = {lam: float(((1 - lam) * lm_probs + lam * knn_probs)
+                          .argmax(1).eq(truth).float().mean())
+               for lam in (0.0, 0.3, 0.6)}
+        emit({"phase": "lm", "card": smi, "cell": "knn-lm datastore",
+              "keys": list(keys.shape), "queries": q.shape[0], "k": 8,
+              "train_steps": knn_steps, "train_s": train_s,
+              "loss_first_last": [hist["loss"][0], hist["loss"][-1]],
+              "index_build_s": kbuild_s, "recall_at_8": recall,
+              "search_ms": search_ms, "next_token_acc": acc,
+              "max_abs_err": knn_err, "launches": launches,
+              "ref_calls": ref_calls})
+        del state, keys, kindex, lm_probs, knn_probs
+        torch.cuda.empty_cache()
+        return dict(lm_launches)
+
+    launches_by_path["lm"] = lm_path()
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

@@ -13,10 +13,12 @@ manifest instead (``index.load_index``).
 
 ``recsys_from_numpy`` takes a recommender's params tree as numpy arrays --
 for example ``jax.device_get(init_mind(key, cfg))`` -- and returns the
-port's module with the same weights.  ``train_state_from_numpy`` takes a
-whole ``TrainState`` so -- ``jax.device_get(state)`` -- and returns the
-port's, its optimizer state an ``AdamState``, a ``FactorState`` or SGDM's
-momentum tree, so that both packages can train from one state.
+port's module with the same weights; ``lm_from_numpy`` does the same for
+a dense language model's ``init_lm`` tree (bfloat16 leaves included).
+``train_state_from_numpy`` takes a whole ``TrainState`` so --
+``jax.device_get(state)`` -- and returns the port's, its optimizer state an
+``AdamState``, a ``FactorState`` or SGDM's momentum tree, so that both
+packages can train from one state.
 """
 from __future__ import annotations
 
@@ -25,11 +27,13 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import LMConfig
 from repro_torch.core.forest import Forest
 from repro_torch.device import resolve_device
 from repro_torch.index.api import get_backend
 from repro_torch.index.params import IndexSpec
 from repro_torch.models import recsys as rs
+from repro_torch.models import transformer as tr
 from repro_torch.train.optimizer import AdamState, FactorState
 from repro_torch.train.train_state import TrainState
 from repro_torch.tree import tree_map
@@ -125,12 +129,22 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
+def lm_from_numpy(tree: Mapping[str, Any], cfg: LMConfig,
+                  device: str | torch.device | None = None) -> tr.LM:
+    """The port's dense LM with the weights of a reference ``init_lm``
+    params tree of numpy arrays, on ``device`` (the GPU unless
+    ``device="cpu"``); leaves keep their dtypes, bfloat16 included."""
+    dev = resolve_device(device)
+    return tr.LM(cfg, tree_map(lambda a: _tensor(a, dev), dict(tree)))
+
+
 def train_state_from_numpy(state, cfg=None,
                            device: str | torch.device | None = None
                            ) -> TrainState:
     """The port's ``TrainState`` from the reference's with numpy leaves,
     on ``device`` (the GPU unless ``device="cpu"``): the params the
-    recommender ``recsys_from_numpy`` builds for ``cfg``, or where ``cfg``
+    recommender ``recsys_from_numpy`` builds for ``cfg`` (the LM
+    ``lm_from_numpy`` builds for an ``LMConfig``), or where ``cfg``
     is None a tree of tensors that require gradients; the optimizer state an
     ``AdamState`` (fields step, m, v), a ``FactorState`` (step, vr, vc) or
     a momentum tree; the residuals a tree, or None."""
@@ -142,6 +156,8 @@ def train_state_from_numpy(state, cfg=None,
 
     if cfg is None:
         params = tree_map(lambda a: _tensor(a, dev).requires_grad_(), params)
+    elif isinstance(cfg, LMConfig):
+        params = lm_from_numpy(params, cfg, dev)
     else:
         params = recsys_from_numpy(params, cfg, dev)
     fields = getattr(opt_state, "_fields", None)

@@ -1,9 +1,9 @@
-"""Cell programs (port of the recsys part of ``repro/launch/steps.py``):
-(arch x shape-cell x mesh) -> a step function, its arguments' shapes, and
-a way to make them.
+"""Cell programs (port of the LM and recsys parts of
+``repro/launch/steps.py``): (arch x shape-cell x mesh) -> a step function,
+its arguments' shapes, and a way to make them.
 
-For every recsys train, serve and retrieval cell this builds a
-``CellProgram``:
+For every dense LM train, prefill and decode cell and every recsys train,
+serve and retrieval cell this builds a ``CellProgram``:
   * ``fn``, the step: serve and retrieval run under ``torch.no_grad``;
     train (``fn(state, batch) -> (state, {"loss"})``) takes one AdamW
     step (``adamw(constant_schedule(1e-3))``) on the reference's BCE with
@@ -23,18 +23,35 @@ For every recsys train, serve and retrieval cell this builds a
     ids ``arange(n)``, and for ``rpf=1`` the catalog's forest
     (``build_catalog_index``).
 
+The LM cells (``models/transformer``): train takes one step of the
+reference's optimizer (AdamW at ``constant_schedule(1e-4)``, its moments
+bf16 for bf16 parameters, or Adafactor under ``opt=adafactor``) on
+``loss_fn`` (the chunked CE, chunks of 512, where the padded vocabulary
+holds 100,000 or more), its batch ``MarkovTokens`` (B, S) tokens and next
+tokens; prefill (``fn(params, cache, tokens) -> (logits, cache)``) runs
+``decode_step`` at position 0 with ``last_only``; decode (``fn(params,
+cache, tokens, pos)``) one token a sequence.  Both take a bf16 cache
+whatever the compute dtype, write it in place and return it; decode's
+``make_args`` fills it with seeded normal values and sets ``pos`` to its
+last slot, so a step reads the whole cache.  The MoE configurations raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 9(b)).
+
 The reference's ``in_shardings`` place the inputs over a TPU mesh; one
 process has no counterpart.  The mesh is the port's logical
 ``core.sharded_index.Mesh`` (``Mesh((1, 1))`` on the device by default),
-and only the ``rpf=1`` retrieval runs cells on it.  The ``lm`` and ``gnn``
-families are not ported yet (ROADMAP.md queue 1 item 9): ``build_cell``
-raises ``NotImplementedError`` for them.
+and only the ``rpf=1`` retrieval runs cells on it.  The ``gnn`` family is
+not ported yet (ROADMAP.md queue 1 item 9): ``build_cell`` raises
+``NotImplementedError`` for it.
 
-``variant`` is "base" or comma-separated keys: ``rpf=1`` serves MIND's
-``retrieval_cand`` through the paper's index (the reference's); for one
-card, ``rows=N`` caps every table at N rows (DLRM-MLPerf's 187.8M rows are
-96 GB of f32) and ``cand=N`` scores N candidates in a CTR model's
-retrieval instead of 1,048,576.  An unknown key raises.
+``variant`` is "base" or comma-separated keys.  LM cells take the
+reference's keys (``_apply_lm_variant``: ``nl=N`` cuts the depth,
+``attn=blockwise`` streams attention over KV blocks, ``remat``, ``opt``,
+...) and, for one card, ``batch=N``, the cell's batch cut to N.  Recsys
+cells: ``rpf=1`` serves MIND's ``retrieval_cand`` through the paper's index
+(the reference's); for one card, ``rows=N`` caps every table at N rows
+(DLRM-MLPerf's 187.8M rows are 96 GB of f32) and ``cand=N`` scores N
+candidates in a CTR model's retrieval instead of 1,048,576.  An unknown
+key raises.
 """
 from __future__ import annotations
 
@@ -45,17 +62,21 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import ArchSpec, RecsysConfig, ShapeCell
+from repro_torch.configs.base import (ArchSpec, LMConfig, RecsysConfig,
+                                      ShapeCell)
 from repro_torch.core.forest import Forest, ForestConfig
 from repro_torch.core.sharded_index import (CellDraws, Mesh, ShardedForest,
                                             build_sharded_index,
                                             make_query_fn, merge_topk_pairs)
+from repro_torch.data.lm_data import MarkovTokens
 from repro_torch.data.recsys_data import BehaviorStream, CTRStream
 from repro_torch.kernels.common import topk_smallest
 from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import recsys as rs
+from repro_torch.models import transformer as tr
 from repro_torch.models.layers import Axes
-from repro_torch.train.optimizer import AdamState, adamw, constant_schedule
+from repro_torch.train.optimizer import (AdamState, adafactor, adamw,
+                                         constant_schedule)
 from repro_torch.train.train_state import (TrainState, init_train_state,
                                            make_train_step)
 from repro_torch.tree import leaves, tree_map
@@ -101,6 +122,206 @@ def _dp_size(mesh: Mesh, dp: tuple[str, ...]) -> int:
     for a in dp:
         out *= mesh.shape[a]
     return out
+
+
+# ===========================================================================
+# LM cells
+# ===========================================================================
+
+
+def _lm_init(cfg: LMConfig):
+    """``init(generator=None, device="meta")`` -> the model."""
+    return lambda generator=None, device="meta": tr.init_lm(generator, cfg,
+                                                            device)
+
+
+def lm_tokens(cfg: LMConfig, b: int, s: int, seed: int, device) -> dict:
+    """A ``MarkovTokens(cfg.vocab_size, seed=seed)`` batch of ``b``
+    sequences of ``s`` tokens and their next tokens, on ``device``."""
+    tok = MarkovTokens(cfg.vocab_size, seed=seed).sample(b, s)
+    return {"tokens": torch.from_numpy(tok[:, :-1]).to(device),
+            "labels": torch.from_numpy(tok[:, 1:]).to(device)}
+
+
+def _logit_chunk(cfg: LMConfig) -> int:
+    """The train program's CE chunk: 512 where the padded vocabulary holds
+    100,000 or more (gemma3's 262,144, stablelm's 100,352), else 0 (the
+    dense CE)."""
+    return 512 if cfg.padded_vocab >= 100_000 else 0
+
+
+def _lm_optimizer(cfg: LMConfig):
+    if cfg.opt == "adafactor":
+        return adafactor(constant_schedule(1e-4))
+    state_dtype = (torch.bfloat16 if cfg.param_dtype == "bfloat16"
+                   else torch.float32)
+    return adamw(constant_schedule(1e-4), state_dtype=state_dtype)
+
+
+def _lm_train_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
+                      multi_pod: bool, b: int) -> CellProgram:
+    cfg: LMConfig = spec.config
+    opt = _lm_optimizer(cfg)
+    logit_chunk = _logit_chunk(cfg)
+    params_meta = _lm_init(cfg)()
+    state_sds = _sds(TrainState(torch.zeros((), dtype=torch.int32,
+                                            device="meta"),
+                                params_meta, opt.init(params_meta), None))
+    s = cell.seq_len
+    batch_sds = {"tokens": ShapeDtype((b, s), torch.int32),
+                 "labels": ShapeDtype((b, s), torch.int32)}
+    step = make_train_step(
+        lambda p, b_: tr.loss_fn(p, b_, cfg, logit_chunk=logit_chunk), opt)
+
+    def train_step(state: TrainState, batch):
+        state, metrics = step(state, batch)
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    def make_args(generator: torch.Generator):
+        model = _lm_init(cfg)(generator, mesh.device)
+        return (init_train_state(model, opt),
+                lm_tokens(cfg, b, s, generator.initial_seed(), mesh.device))
+
+    return CellProgram(
+        fn=train_step,
+        args=(state_sds, batch_sds),
+        meta=_lm_meta(cfg, cell, n_tokens=b * s, kind="train"),
+        make_args=make_args,
+    )
+
+
+def _lm_prefill_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
+                        multi_pod: bool, b: int) -> CellProgram:
+    cfg: LMConfig = spec.config
+    s = cell.seq_len
+    params_sds = _sds(_lm_init(cfg)())
+    cache_sds = _sds(tr.init_cache(cfg, b, s, torch.bfloat16, "meta"))
+    tok_sds = ShapeDtype((b, s), torch.int32)
+
+    @torch.no_grad()
+    def prefill(params, cache, tokens):
+        return tr.decode_step(params, cache, tokens, 0, cfg, last_only=True)
+
+    def make_args(generator: torch.Generator):
+        return (_lm_init(cfg)(generator, mesh.device),
+                tr.init_cache(cfg, b, s, torch.bfloat16, mesh.device),
+                lm_tokens(cfg, b, s, generator.initial_seed(),
+                          mesh.device)["tokens"])
+
+    return CellProgram(
+        fn=prefill,
+        args=(params_sds, cache_sds, tok_sds),
+        meta=_lm_meta(cfg, cell, n_tokens=b * s, kind="prefill"),
+        make_args=make_args,
+    )
+
+
+def _lm_decode_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
+                       multi_pod: bool, b: int) -> CellProgram:
+    cfg: LMConfig = spec.config
+    s_max = cell.seq_len
+    params_sds = _sds(_lm_init(cfg)())
+    cache_sds = _sds(tr.init_cache(cfg, b, s_max, torch.bfloat16, "meta"))
+    tok_sds = ShapeDtype((b, 1), torch.int32)
+    pos_sds = ShapeDtype((), torch.int32)
+
+    @torch.no_grad()
+    def decode(params, cache, tokens, pos):
+        return tr.decode_step(params, cache, tokens, pos, cfg)
+
+    def make_args(generator: torch.Generator):
+        dev = mesh.device
+        cache = tr.init_cache(cfg, b, s_max, torch.bfloat16, dev)
+        for t in cache:
+            t.normal_(generator=generator)
+        return (_lm_init(cfg)(generator, dev), cache,
+                lm_tokens(cfg, b, 1, generator.initial_seed(),
+                          dev)["tokens"],
+                torch.tensor(s_max - 1, dtype=torch.int32, device=dev))
+
+    return CellProgram(
+        fn=decode,
+        args=(params_sds, cache_sds, tok_sds, pos_sds),
+        meta=_lm_meta(cfg, cell, n_tokens=b, kind="decode"),
+        make_args=make_args,
+    )
+
+
+def _lm_meta(cfg: LMConfig, cell: ShapeCell, n_tokens: int, kind: str) -> dict:
+    n_total = cfg.param_count()
+    # active params per token (MoE: top_k routed + shared of the MoE layers)
+    if cfg.moe:
+        expert_p = 3 * cfg.d_model * cfg.d_ff
+        n_moe = cfg.n_layers // cfg.moe_every
+        routed_total = n_moe * cfg.n_experts * expert_p
+        active = n_total - routed_total + n_moe * cfg.top_k * expert_p
+    else:
+        active = n_total
+    flops_per_token = {"train": 6, "prefill": 2, "decode": 2}[kind] * active
+    # attention flops (dominant for long context): 2*2*L*S*d_attn per token
+    s = cell.seq_len
+    attn = 0
+    win = cfg.layer_windows
+    for w in win:
+        eff = min(w, s) if w else s
+        per_tok_ctx = eff / 2 if kind != "decode" else eff
+        attn += (12 if kind == "train" else 4) * \
+            cfg.n_heads * cfg.head_dim * per_tok_ctx
+    return {
+        "params_total": n_total,
+        "params_active": active,
+        "n_tokens": n_tokens,
+        "model_flops": n_tokens * (flops_per_token + attn),
+        "kind": kind,
+    }
+
+
+def _apply_lm_variant(cfg: LMConfig, variant: str) -> LMConfig:
+    """Perf-iteration variants (the reference's keys)."""
+    if variant == "base":
+        return cfg
+    changes = {}
+    for item in variant.split(","):
+        k, _, v = item.partition("=")
+        if k == "attn_shard":
+            changes["attn_shard"] = v
+        elif k == "remat":
+            changes["remat"] = v == "1"
+        elif k == "fsdp":
+            changes["fsdp"] = v == "1"
+        elif k == "cap":
+            changes["capacity_factor"] = float(v)
+        elif k == "unroll":
+            changes["unroll"] = v == "1"
+        elif k == "attn":
+            changes["attn_impl"] = v
+        elif k == "kvblock":
+            changes["kv_block"] = int(v)
+        elif k == "nl":
+            changes["n_layers"] = int(v)   # depth-extrapolation calibration
+        elif k == "efsdp":
+            changes["expert_fsdp"] = int(v)
+        elif k == "opt":
+            changes["opt"] = v
+        elif k == "gq":
+            changes["moe_gather_quant"] = v == "1"
+        elif k == "a2a":
+            changes["moe_a2a"] = v == "1"
+        else:
+            raise ValueError(f"unknown variant key {k}")
+    return dataclasses.replace(cfg, **changes)
+
+
+def _lm_batch_variant(variant: str) -> tuple[str, Optional[int]]:
+    """(the variant without its port-only ``batch=N`` key, N or None)."""
+    keep, batch = [], None
+    for item in (variant.split(",") if variant != "base" else []):
+        key, _, val = item.partition("=")
+        if key == "batch":
+            batch = int(val)
+        else:
+            keep.append(item)
+    return ",".join(keep) or "base", batch
 
 
 # ===========================================================================
@@ -466,15 +687,29 @@ def build_cell(arch_id: str, cell_name: str, mesh: Optional[Mesh] = None,
     if cell.skip:
         raise ValueError(f"cell {arch_id}/{cell_name} is skipped: "
                          f"{cell.skip_reason}")
-    if spec.family in ("lm", "gnn"):
+    if spec.family == "gnn":
         raise NotImplementedError(
             f"{arch_id}/{cell_name}: the {spec.family} {cell.kind} program "
             f"is {NOT_PORTED}")
+    if mesh is None:
+        shape, axes = (((1, 1, 1), ("pod", "data", "model")) if multi_pod
+                       else ((1, 1), ("data", "model")))
+        mesh = Mesh(shape, axes, device=device)
+    if spec.family == "lm":
+        rest, batch = _lm_batch_variant(variant)
+        cfg = _apply_lm_variant(spec.config, rest)
+        if tr.structure(cfg) != "dense":
+            raise NotImplementedError(f"{arch_id}/{cell_name}: "
+                                      f"{tr.MOE_NOT_PORTED}")
+        spec = dataclasses.replace(spec, config=cfg)
+        b = batch or cell.global_batch
+        if cell.kind == "train":
+            return _lm_train_program(spec, cell, mesh, multi_pod, b)
+        if cell.kind == "prefill":
+            return _lm_prefill_program(spec, cell, mesh, multi_pod, b)
+        if cell.kind == "decode":
+            return _lm_decode_program(spec, cell, mesh, multi_pod, b)
     if spec.family == "recsys":
-        if mesh is None:
-            shape, axes = (((1, 1, 1), ("pod", "data", "model")) if multi_pod
-                           else ((1, 1), ("data", "model")))
-            mesh = Mesh(shape, axes, device=device)
         cfg, rpf, n_cand = _recsys_variant(spec.config, variant)
         spec = dataclasses.replace(spec, config=cfg)
         if cell.kind == "train":

@@ -5,13 +5,17 @@ GPU unless ``--device cpu``:
       --preset smoke --steps 50
 
 ``--preset smoke`` shrinks the arch to a small config of the same
-structure (``smoke_recsys``); ``--preset full`` uses the registered
-production config.  The recommenders (``mind``, ``dlrm-mlperf``,
-``autoint``, ``wide-deep``) train through ``train/train_loop.train`` with
-AdamW on a cosine schedule (weight decay 0.01) and the reference's BCE:
-checkpoint cadence and resume (``--ckpt-every``, ``--ckpt-dir``; either
-package's checkpoints), the preemption check and the straggler watchdog.
-An ``--arch`` of the ``lm`` or ``gnn`` family exits with "not ported yet"
+structure (``smoke_lm``, ``smoke_recsys``); ``--preset full`` uses the
+registered production config.  Every model trains through
+``train/train_loop.train`` with AdamW on a cosine schedule (weight decay
+0.01): checkpoint cadence and resume (``--ckpt-every``, ``--ckpt-dir``;
+either package's checkpoints), the preemption check and the straggler
+watchdog.  The dense language models (``smollm-135m``, ``gemma3-4b``,
+``stablelm-12b``) train ``models/transformer.loss_fn`` on
+``MarkovTokens(vocab, seed=0)`` batches of ``--batch`` x ``--seq``; the
+recommenders (``mind``, ``dlrm-mlperf``, ``autoint``, ``wide-deep``) the
+reference's BCE, ignoring ``--seq`` as the reference does.  The MoE
+language models and the ``gnn`` family exit with "not ported yet"
 (ROADMAP.md queue 1 item 9).  ``main(argv)`` returns the loop's history.
 """
 from __future__ import annotations
@@ -25,10 +29,12 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.data.lm_data import MarkovTokens
 from repro_torch.data.recsys_data import BehaviorStream, CTRStream
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import NOT_PORTED, recsys_loss
 from repro_torch.models import recsys as rs
+from repro_torch.models import transformer as tr
 from repro_torch.train.optimizer import adamw, cosine_schedule
 from repro_torch.train.train_loop import LoopConfig, train
 from repro_torch.train.train_state import init_train_state, make_train_step
@@ -61,6 +67,7 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--preset", choices=["smoke", "full"], default="smoke")
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=64)
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--ckpt-dir", default="")
     p.add_argument("--ckpt-every", type=int, default=0)
@@ -70,7 +77,8 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
 
     spec = get_arch(args.arch)
-    if spec.family != "recsys":
+    if spec.family == "gnn" or (spec.family == "lm"
+                                and tr.structure(spec.config) != "dense"):
         raise SystemExit(f"[train] {args.arch}: the {spec.family} train "
                          f"program is {NOT_PORTED}")
     dev = resolve_device(None if args.device == "cuda" else args.device)
@@ -82,23 +90,37 @@ def main(argv: list[str] | None = None) -> dict:
                       ckpt_dir=args.ckpt_dir or os.path.join(
                           tempfile.gettempdir(), f"repro_{args.arch}"))
 
-    cfg = smoke_recsys(spec.config) if args.preset == "smoke" \
-        else spec.config
-    model = rs.INITS[cfg.model](torch.Generator(device=dev).manual_seed(0),
-                                cfg, dev)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    if spec.family == "lm":
+        cfg = smoke_lm(spec.config) if args.preset == "smoke" \
+            else spec.config
+        model = tr.init_lm(generator, cfg, dev)
+
+        def loss_fn(p_, b_):
+            return tr.loss_fn(p_, b_, cfg)
+        data = MarkovTokens(cfg.vocab_size, seed=0)
+
+        def batches():
+            for b in data.batches(args.batch, args.seq):
+                yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    else:
+        cfg = smoke_recsys(spec.config) if args.preset == "smoke" \
+            else spec.config
+        model = rs.INITS[cfg.model](generator, cfg, dev)
+        loss_fn = recsys_loss(cfg)
+        if cfg.model == "mind":
+            stream = BehaviorStream(cfg.item_vocab, cfg.hist_len, seed=0)
+        else:
+            stream = CTRStream(cfg.table_sizes, cfg.n_dense, seed=0)
+
+        def batches():
+            while True:
+                yield {k: torch.from_numpy(v).to(dev)
+                       for k, v in stream.batch(args.batch).items()}
     print(f"[train] {args.arch}: "
           f"{sum(x.numel() for x in leaves(model)):,} params on {dev}")
-    if cfg.model == "mind":
-        stream = BehaviorStream(cfg.item_vocab, cfg.hist_len, seed=0)
-    else:
-        stream = CTRStream(cfg.table_sizes, cfg.n_dense, seed=0)
     state = init_train_state(model, opt)
-    step = make_train_step(recsys_loss(cfg), opt)
-
-    def batches():
-        while True:
-            yield {k: torch.from_numpy(v).to(dev)
-                   for k, v in stream.batch(args.batch).items()}
+    step = make_train_step(loss_fn, opt)
 
     state, hist = train(state, step, batches(), lcfg)
     if hist["loss"]:

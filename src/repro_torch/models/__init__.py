@@ -1,1 +1,2 @@
-"""Model code (port of ``repro/models/``): ``layers`` and ``recsys``."""
+"""Model code (port of ``repro/models/``): ``layers``, ``recsys``,
+``attention`` and the dense ``transformer``."""

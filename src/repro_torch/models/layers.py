@@ -5,7 +5,9 @@ The initializers draw from an explicit ``torch.Generator`` on the device
 they allocate on; on the ``meta`` device they allocate nothing and take no
 generator, which is how the cell programs read shapes without memory (the
 reference's ``jax.eval_shape``).  Norms compute in f32 and return the input
-dtype, as the reference's do.
+dtype, as the reference's do.  "f32" means at least f32 throughout
+(``upcast``): a float64 input computes in float64, which a float64
+gradient check of the port needs and the reference never meets.
 """
 from __future__ import annotations
 
@@ -28,7 +30,13 @@ class Axes:
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
-            "float16": torch.float16}[name]
+            "float16": torch.float16, "float64": torch.float64}[name]
+
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or in float64 where it is float64 (the reference's
+    ``astype(jnp.float32)``)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -68,9 +76,9 @@ def embed_init(generator: torch.Generator | None, vocab: int, d: int,
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
-    xf = x.float()
+    xf = upcast(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.to(xf.dtype))
     return out.to(x.dtype)
 
 
@@ -100,11 +108,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float
                ) -> torch.Tensor:
     """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], base, x.device)       # (half,)
-    angle = positions[..., None].float() * freqs          # (..., S, half)
+    x1f, x2f = upcast(x[..., :half]), upcast(x[..., half:])
+    freqs = rope_freqs(x.shape[-1], base, x.device).to(x1f.dtype)  # (half,)
+    angle = positions[..., None].to(x1f.dtype) * freqs    # (..., S, half)
     cos = torch.cos(angle)[..., None, :]                  # (..., S, 1, half)
     sin = torch.sin(angle)[..., None, :]
-    x1f, x2f = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -119,7 +127,7 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           z_loss: float = 0.0) -> torch.Tensor:
     """logits (..., V) f32-upcast CE with optional z-loss; labels int
     (...,)."""
-    logits = logits.float()
+    logits = upcast(logits)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels.long()[..., None],
                               dim=-1)[..., 0]

@@ -1,0 +1,340 @@
+"""Decoder-only transformer LM, dense structure (port of the dense part of
+``repro/models/transformer.py``).
+
+The model is an ``nn.Module`` (``LM``) built from the reference's params
+tree, whose parameters carry the tree's names (``embed``,
+``layers.attn.wq``, ``final_norm``, ``unembed``): ``repro_torch.tree``
+reads it as that tree, so weights, train states and checkpoints cross
+packages by name, and ``convert.lm_from_numpy`` builds one from the
+reference's arrays.  Every layer leaf is stacked along axis 0, as
+``(n_layers, ...)``, as the reference's scan over layers stacks it; a pass
+splits each stacked leaf once (``torch.unbind``, whose backward is one
+stack) and runs the layers in a Python loop, the reference's ``unroll``
+branch.  The functions keep the reference's names and arguments, with the
+model (or its params tree) in the place of the params dict; ``axes`` is
+accepted and unused, as one process has no mesh to constrain.
+
+Numerics follow the reference: each block's parameters are cast to the
+compute dtype (``_cast``), norms compute in f32, attention scores are f32
+(``models/attention``), the logits are the compute dtype's product upcast
+to f32.  ``cfg.remat`` checkpoints each block (and ``chunked_cross_entropy``
+each chunk) with ``torch.utils.checkpoint`` when a gradient is taken.  A
+decode or prefill writes the KV cache in place and returns it.
+
+The MoE structures (``structure(cfg)`` "moe" and "dense_moe") are not
+ported yet: ``init_lm``, ``forward`` and ``decode_step`` raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 9(b)).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import (Axes, dtype_of, normal, rms_norm,
+                                       softmax_cross_entropy, upcast)
+from repro_torch.tree import flatten_with_names, module_tree, tree_map, unflatten
+
+F32 = torch.float32
+MOE_NOT_PORTED = ("the MoE transformer is not ported yet (ROADMAP.md queue 1 "
+                  "item 9(b))")
+
+
+def structure(cfg: LMConfig) -> str:
+    if cfg.moe and cfg.moe_every == 2:
+        return "dense_moe"
+    if cfg.moe:
+        return "moe"
+    return "dense"
+
+
+def _require_dense(cfg: LMConfig) -> None:
+    if structure(cfg) != "dense":
+        raise NotImplementedError(f"{cfg.name}: {MOE_NOT_PORTED}")
+
+
+def _device(device) -> torch.device:
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+# ---------------------------------------------------------------------------
+# the model: the reference's params tree as named parameters
+# ---------------------------------------------------------------------------
+
+
+class _Node(nn.Module):
+    """A dict of tensors and dicts as nested modules and parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                setattr(self, name, _Node(value))
+            else:
+                setattr(self, name, nn.Parameter(value))
+
+
+class LM(_Node):
+    """The dense LM's parameters: ``embed`` (Vpad, D), ``layers`` (each leaf
+    (n_layers, ...)), ``final_norm`` (D,) and, untied, ``unembed`` (D,
+    Vpad).  ``forward(tokens)`` is ``forward(self, tokens, cfg)``."""
+
+    def __init__(self, cfg: LMConfig, tree: dict):
+        _require_dense(cfg)
+        super().__init__(tree)
+        self.cfg = cfg
+
+    def forward(self, tokens: torch.Tensor):
+        return forward(self, tokens, self.cfg)
+
+
+def _tree(params) -> dict:
+    return module_tree(params) if isinstance(params, nn.Module) else params
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_dense_block(generator, cfg: LMConfig, dtype, device,
+                      lead: tuple[int, ...] = ()) -> dict:
+    def dense(d_in, d_out):
+        return normal(generator, lead + (d_in, d_out), device).mul_(
+            1.0 / math.sqrt(d_in)).to(dtype)
+
+    return {
+        "ln1": torch.zeros(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "attn": attn_mod.init_attention(generator, cfg.d_model, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.head_dim, dtype,
+                                        device, lead),
+        "ln2": torch.zeros(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "ffn": {
+            "w_gate": dense(cfg.d_model, cfg.d_ff),
+            "w_up": dense(cfg.d_model, cfg.d_ff),
+            "w_down": dense(cfg.d_ff, cfg.d_model),
+        },
+    }
+
+
+def init_lm(generator: torch.Generator | None, cfg: LMConfig,
+            device=None) -> LM:
+    """The model drawn from ``generator`` on ``device`` (the GPU unless
+    ``device="cpu"``; ``"meta"`` allocates nothing): the reference's
+    distributions (dense weights N(0, 1/d_in), the embedding and the
+    unembedding N(0, 0.02^2), norms 0) in ``cfg.param_dtype``."""
+    _require_dense(cfg)
+    dev = _device(device)
+    dtype = dtype_of(cfg.param_dtype)
+    vpad = cfg.padded_vocab
+    tree = {
+        "embed": normal(generator, (vpad, cfg.d_model), dev).mul_(0.02
+                                                                   ).to(dtype),
+        "layers": _init_dense_block(generator, cfg, dtype, dev,
+                                    (cfg.n_layers,)),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        tree["unembed"] = normal(generator, (cfg.d_model, vpad), dev).mul_(
+            0.02).to(dtype)
+    return LM(cfg, tree)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _cast(p, dtype):
+    """Cast a param subtree to the compute dtype (norm math re-upcasts
+    internally where precision matters)."""
+    return tree_map(lambda a: a.to(dtype), p)
+
+
+def _ffn(p, x):
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def _attn_kwargs(cfg: LMConfig):
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, rope_base=cfg.rope_base,
+                attn_impl=cfg.attn_impl, kv_block=cfg.kv_block,
+                unroll=cfg.unroll)
+
+
+def _dense_block_fwd(p, x, positions, window, cfg: LMConfig,
+                     axes: Optional[Axes] = None, cache=None, cache_pos=None):
+    p = _cast(p, x.dtype)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, new_cache = attn_mod.attention_fwd(
+        p["attn"], h, positions, window, softcap=cfg.logit_softcap,
+        cache=cache, cache_pos=cache_pos, **_attn_kwargs(cfg))
+    x = x + a
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + _ffn(p["ffn"], h)
+    return x, new_cache
+
+
+def _layers(params: dict, n_layers: int) -> list[dict]:
+    """The stacked layer tree split into ``n_layers`` trees, each stacked
+    leaf unbound once."""
+    named = flatten_with_names(params["layers"])
+    parts = [torch.unbind(leaf, 0) for _, leaf in named]
+    return [unflatten(params["layers"], [p[i] for p in parts])
+            for i in range(n_layers)]
+
+
+def _unembed(params: dict, cfg: LMConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return w.to(dtype_of(cfg.compute_dtype))
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig
+           ) -> torch.Tensor:
+    """The tokens' embedding rows in the compute dtype (``nn.Embedding``'s
+    gather: its backward sums each token's rows)."""
+    return F.embedding(tokens.long(), params["embed"]).to(
+        dtype_of(cfg.compute_dtype))
+
+
+# ---------------------------------------------------------------------------
+# forward (training / prefill, full sequence)
+# ---------------------------------------------------------------------------
+
+
+def forward(params, tokens: torch.Tensor, cfg: LMConfig,
+            axes: Optional[Axes] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, Vpad) f32, aux_loss scalar)."""
+    p = _tree(params)
+    x, aux = forward_hidden(p, tokens, cfg, axes)
+    logits = upcast(x @ _unembed(p, cfg))
+    return logits, aux
+
+
+def forward_hidden(params, tokens: torch.Tensor, cfg: LMConfig,
+                   axes: Optional[Axes] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Like forward() but stops before the unembedding: (hidden, aux)."""
+    _require_dense(cfg)
+    p = _tree(params)
+    x = _embed(p, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p_i, w in zip(_layers(p, cfg.n_layers), cfg.layer_windows):
+        def block(x, p_i=p_i, w=w):
+            return _dense_block_fwd(p_i, x, positions, w, cfg, axes)[0]
+        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=F32, device=x.device)
+
+
+def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
+                          labels: torch.Tensor, vocab_size: int, chunk: int,
+                          axes: Optional[Axes] = None,
+                          unroll: bool = False) -> torch.Tensor:
+    """CE without materializing (B, S, V) logits: a loop over sequence
+    chunks, rematerializing each chunk's logits in the backward pass.
+    ``s % chunk == 0`` is required, as the reference's reshape requires it."""
+    b, s, d = x.shape
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the logit "
+                         f"chunk {chunk}")
+    vpad = unembed.shape[1]
+    neg = torch.where(torch.arange(vpad, device=x.device) < vocab_size,
+                      0.0, -1e9)
+
+    def body(xc, lc):
+        logits = upcast(xc @ unembed) + neg
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, lc.long()[..., None],
+                                  dim=-1)[..., 0]
+        return torch.sum(lse - ll)
+
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(s // chunk):
+        xc = x[:, i * chunk:(i + 1) * chunk]
+        lc = labels[:, i * chunk:(i + 1) * chunk]
+        total = total + (checkpoint(body, xc, lc, use_reentrant=False)
+                         if remat else body(xc, lc))
+    return total / (b * s)
+
+
+def loss_fn(params, batch: dict, cfg: LMConfig,
+            axes: Optional[Axes] = None, aux_weight: float = 0.01,
+            logit_chunk: int = 0):
+    """logit_chunk > 0 uses the chunked CE path (no (B,S,V) materialization)."""
+    p = _tree(params)
+    if logit_chunk:
+        x, aux = forward_hidden(p, batch["tokens"], cfg, axes)
+        ce = chunked_cross_entropy(x, _unembed(p, cfg), batch["labels"],
+                                   cfg.vocab_size, logit_chunk, axes,
+                                   unroll=cfg.unroll)
+        loss = ce + aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
+    logits, aux = forward(p, batch["tokens"], cfg, axes)
+    # mask out padded vocab entries
+    vpad = cfg.padded_vocab
+    if vpad != cfg.vocab_size:
+        neg = torch.where(torch.arange(vpad, device=logits.device)
+                          < cfg.vocab_size, 0.0, -1e9)
+        logits = logits + neg
+    mask = batch.get("mask")
+    ce = softmax_cross_entropy(logits, batch["labels"], mask)
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# decode (single-token step against a KV cache)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: LMConfig, batch: int, s_max: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> KVCache:
+    """Zero K and V of (n_layers, batch, s_max, KV, Dh) on ``device`` (the
+    GPU unless ``device="cpu"``; ``"meta"`` allocates nothing)."""
+    dev = _device(device)
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                   torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def decode_step(params, cache: KVCache, tokens: torch.Tensor,
+                pos: torch.Tensor | int, cfg: LMConfig,
+                axes: Optional[Axes] = None, last_only: bool = False
+                ) -> tuple[torch.Tensor, KVCache]:
+    """tokens (B, S) at absolute positions pos..pos+S-1 -> (logits, cache).
+
+    S=1 is the decode hot loop; S=seq_len with pos=0 is prefill (pass
+    last_only=True to only unembed the final position).  The cache's
+    tensors are written in place (each layer's K / V at its slots) and the
+    same cache is returned.
+    """
+    _require_dense(cfg)
+    p = _tree(params)
+    x = _embed(p, tokens, cfg)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    positions = pos + torch.arange(tokens.shape[1], dtype=torch.int32,
+                                   device=x.device)
+    for i, (p_i, w) in enumerate(zip(_layers(p, cfg.n_layers),
+                                     cfg.layer_windows)):
+        x, _ = _dense_block_fwd(p_i, x, positions, w, cfg, axes,
+                                cache=KVCache(cache.k[i], cache.v[i]),
+                                cache_pos=pos)
+    if last_only:
+        x = x[:, -1:, :]
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    logits = upcast(x @ _unembed(p, cfg))
+    return logits, cache

@@ -618,7 +618,7 @@ def test_launch_train_main_on_the_cpu(arch, tmp_path):
     assert again["step"] == []
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "mace"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mace"])
 def test_launch_train_refuses_what_is_not_ported(arch):
     with pytest.raises(SystemExit, match="not ported yet"):
         tlaunch.main(["--arch", arch, "--device", "cpu"])
