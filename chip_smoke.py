@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Sixteen paths, each driven through the entry points a user calls, with every
+Seventeen paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -204,6 +204,28 @@ version may have run):
            against exact cosine, next-token accuracy at lambda 0, 0.3 and
            0.6, search ms and build seconds; the two routes to f32 scores
            from bf16 operands (``bmm(out_dtype=f32)`` and an upcast)
+  moe      the MoE language models through ``build_cell`` (``models/moe.py``
+           and the transformer's ``moe`` / ``dense_moe`` structures, plain
+           PyTorch on the card as the reference's router, dispatch and
+           expert products are plain XLA): granite-moe-1b-a400m at full
+           depth and width ``prefill_32k`` (blockwise, batch 1),
+           ``decode_32k`` (batch 32: a 51.5 GB cache) and ``train_4k``
+           (batch 4); llama4-maverick-400b-a17b at ``nl=2``, one [dense,
+           MoE] group at full width (18.55B parameters, 37.1 GB bf16),
+           ``prefill_32k`` (blockwise, batch 1) and ``decode_32k`` (batch
+           64).  Checks: prefill over a 2,048-token prompt and one decode
+           step against ``forward`` at a capacity that drops nothing
+           (granite in f32 compute, rtol / atol 2e-3; llama4 in bf16, 2^-6
+           of the largest logit); the gradients of two 2-layer f32 MoE LMs
+           (top-2 ``moe``; top-1 ``dense_moe`` with a shared expert; tokens
+           dropped) within rtol 1e-4 (atol 1e-6 x the largest) of float64
+           on the CPU taking the card's routing; ``moe_fwd_sharded``
+           (plain, fsdp, the int8 gather) and ``moe_fwd_a2a`` on a one-rank
+           NCCL group bit for bit the group-less mesh, outputs and
+           gradients, and ``moe_fwd_sharded`` at (1, 1) within 1e-6 of
+           ``moe_fwd``; the train cell's losses descending.  Printed as the
+           ``lm`` path prints its cells (the decodes' bytes bound counts
+           every expert: the dispatch runs each on its cap + 1 slots)
 
 Phases, each printing one JSON line:
 
@@ -3612,6 +3634,95 @@ def main():
 
     launches_by_path["train"] = train_path()
 
+    def lm_cell_rows(path, cells, gen, path_launches):
+        """Each LM cell ``(arch, cell, variant, timed runs, warm-up runs)``
+        through ``build_cell`` with seeded weights: ms (CUDA events), tokens
+        / s, the FLOPs share of the bf16 peak, peak memory, the idle share
+        and device events (profiler), a decode's share of its bytes bound
+        (cache and bf16 parameters), a train cell's losses on its one batch
+        (they must fall) and whether two runs of a step are equal bit for
+        bit.  No kernel launches and no plain version runs."""
+        import copy
+        from repro_torch.configs import get_arch
+        from repro_torch.launch import steps
+        from repro_torch.train.train_state import TrainState
+        from repro_torch.tree import flatten_with_names, leaves, tree_map
+        bf16_peak, hbm = 989e12, mem_rate(card)
+
+        def lm_cfg(arch, variant):
+            rest, _ = steps._lm_batch_variant(variant)
+            return steps._apply_lm_variant(get_arch(arch).config, rest)
+
+        for arch, cell, variant, reps, warm in cells:
+            cfg = lm_cfg(arch, variant)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            prog = steps.build_cell(arch, cell, variant=variant, device=dev)
+            t0 = time.perf_counter()
+            args = prog.make_args(gen.manual_seed(0))
+            torch.cuda.synchronize()
+            args_s = time.perf_counter() - t0
+            losses = []
+
+            def call():
+                out = prog.fn(*args)
+                if prog.meta["kind"] == "train":
+                    losses.append(out[1]["loss"])
+
+            def drive():
+                # the profiled calls warm up the timed ones
+                idle_ = idle_share(call, 1 if "prefill" in cell else 2)
+                return time_ms(torch, call, reps, warm=warm), idle_
+
+            (ms, idle), launches, ref_calls = counted(torch, counters, drive)
+            require(launches, ref_calls, (), f"{path} {arch} {cell}")
+            path_launches.update(launches)
+            peak = torch.cuda.max_memory_allocated()
+            meta = prog.meta
+            row = {"phase": path, "card": smi, "arch": arch, "cell": cell,
+                   "variant": variant, "kind": meta["kind"],
+                   "n_layers": cfg.n_layers, "params": meta["params_total"],
+                   "ms": ms, "tokens_per_s": meta["n_tokens"] / ms * 1e3,
+                   "model_flops": meta["model_flops"],
+                   "flops_share_of_bf16_peak":
+                       meta["model_flops"] / (ms / 1e3) / bf16_peak,
+                   "peak_gb": peak / 1e9, "held_before_gb": held / 1e9,
+                   "make_args_s": args_s, **idle}
+            if meta["kind"] == "decode":
+                cache_bytes = sum(t.nbytes for t in args[1])
+                param_bytes = meta["params_total"] * 2    # bf16 compute
+                row.update(cache_gb=cache_bytes / 1e9,
+                           bytes_bound_ms=(cache_bytes + param_bytes)
+                           / hbm * 1e3)
+                row["bound_share"] = row["bytes_bound_ms"] / ms
+            if meta["kind"] == "train":
+                ls = [float(x) for x in losses]
+                check(all(math.isfinite(x) for x in ls) and ls[-1] < ls[0],
+                      f"{path} {arch} train: losses {ls}")
+                state = args[0]
+
+                def one_step(st):
+                    st = TrainState(st.step.clone(), copy.deepcopy(st.params),
+                                    tree_map(torch.clone, st.opt_state),
+                                    None)
+                    prog.fn(st, args[1])
+                    return st
+                # the first run's state waits on the host (an f32 model's
+                # parameters and moments are 16 GB at granite's 1.3B)
+                a_ = tree_map(lambda t: t.cpu(), one_step(state))
+                b_ = one_step(state)
+                differ = [n for (n, x), y in zip(flatten_with_names(a_),
+                                                 leaves(b_))
+                          if not torch.equal(x, y.cpu())]
+                row.update(losses=ls, two_runs_bit_for_bit=not differ,
+                           leaves_that_differ=differ)
+                del a_, b_, state
+            emit(row)
+            del prog, args
+        torch.cuda.empty_cache()
+
     # ---- path: lm (the dense language models through build_cell) ---------
     # smollm-135m (prefill_32k blockwise at batch 1, decode_32k at 64,
     # train_4k at 8), gemma3-4b at nl=6 (prefill_32k blockwise at 1,
@@ -3773,73 +3884,7 @@ def main():
             "grad_vs_f64_max_abs_err_over_top": grad_errs}})
 
         # 4. the cells
-        for arch, cell, variant, reps, warm in cells:
-            cfg = lm_cfg(arch, variant)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            held = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            prog = steps.build_cell(arch, cell, variant=variant, device=dev)
-            t0 = time.perf_counter()
-            args = prog.make_args(gen.manual_seed(0))
-            torch.cuda.synchronize()
-            args_s = time.perf_counter() - t0
-            losses = []
-
-            def call():
-                out = prog.fn(*args)
-                if prog.meta["kind"] == "train":
-                    losses.append(out[1]["loss"])
-
-            def drive():
-                # the profiled calls warm up the timed ones
-                idle_ = idle_share(call, 1 if "prefill" in cell else 2)
-                return time_ms(torch, call, reps, warm=warm), idle_
-
-            (ms, idle), launches, ref_calls = counted(torch, counters, drive)
-            require(launches, ref_calls, (), f"lm {arch} {cell}")
-            lm_launches.update(launches)
-            peak = torch.cuda.max_memory_allocated()
-            meta = prog.meta
-            row = {"phase": "lm", "card": smi, "arch": arch, "cell": cell,
-                   "variant": variant, "kind": meta["kind"],
-                   "n_layers": cfg.n_layers, "params": meta["params_total"],
-                   "ms": ms, "tokens_per_s": meta["n_tokens"] / ms * 1e3,
-                   "model_flops": meta["model_flops"],
-                   "flops_share_of_bf16_peak":
-                       meta["model_flops"] / (ms / 1e3) / bf16_peak,
-                   "peak_gb": peak / 1e9, "held_before_gb": held / 1e9,
-                   "make_args_s": args_s, **idle}
-            if meta["kind"] == "decode":
-                cache_bytes = sum(t.nbytes for t in args[1])
-                param_bytes = meta["params_total"] * 2    # bf16 compute
-                row.update(cache_gb=cache_bytes / 1e9,
-                           bytes_bound_ms=(cache_bytes + param_bytes)
-                           / hbm * 1e3)
-                row["bound_share"] = row["bytes_bound_ms"] / ms
-            if meta["kind"] == "train":
-                ls = [float(x) for x in losses]
-                check(all(math.isfinite(x) for x in ls) and ls[-1] < ls[0],
-                      f"lm {arch} train: losses {ls}")
-                state = args[0]
-
-                def one_step(st):
-                    st = TrainState(st.step.clone(), copy.deepcopy(st.params),
-                                    tree_map(torch.clone, st.opt_state),
-                                    None)
-                    prog.fn(st, args[1])
-                    return st
-                a_, b_ = one_step(state), one_step(state)
-                differ = [n for (n, x), y in zip(flatten_with_names(a_),
-                                                 leaves(b_))
-                          if not torch.equal(x, y)]
-                row.update(losses=ls, two_runs_bit_for_bit=not differ,
-                           leaves_that_differ=differ)
-                del a_, b_, state
-            emit(row)
-            del prog, args
-        torch.cuda.empty_cache()
-
+        lm_cell_rows("lm", cells, gen, lm_launches)
         # 5. the kNN-LM datastore on the paper's index; remat off, as the
         # example's config sets it (16 x 64 tokens need no recompute)
         cfg = dataclasses.replace(get_arch("smollm-135m").config,
@@ -3930,6 +3975,259 @@ def main():
         return dict(lm_launches)
 
     launches_by_path["lm"] = lm_path()
+
+    # ---- path: moe (the MoE language models through build_cell) --------
+    # granite-moe-1b-a400m at full depth and width (prefill_32k blockwise
+    # at batch 1, decode_32k at 32, train_4k at 4) and
+    # llama4-maverick-400b-a17b at nl=2, one [dense, MoE] group at full
+    # width (prefill_32k blockwise at 1, decode_32k at 64); seeded weights,
+    # MarkovTokens; plain PyTorch on the card, as the reference's router,
+    # dispatch and expert products are plain XLA with no Pallas kernel.
+    # Gates: prefill (last_only) over a 2,048-token prompt equal to
+    # forward's last position and one decode step to forward's next, at a
+    # capacity that drops no token (cap = E / top_k): granite in f32
+    # compute (rtol / atol 2e-3), llama4 in its bf16 (2^-6 of the largest
+    # logit); the gradients of two small f32 MoE LMs (2 layers: top-2
+    # "moe", and one [dense, MoE] group of top-1 "dense_moe" with a shared
+    # expert; capacity 1.25 so that tokens drop) within rtol 1e-4 (atol
+    # 1e-6 x the largest) of float64 on the CPU, the float64 run taking the
+    # card's routing (each layer's selected experts, and so its keep
+    # masks) as given; on a one-rank NCCL group, moe_fwd_sharded (plain,
+    # fsdp, fsdp with the int8 gather) and moe_fwd_a2a bit for bit the
+    # group-less mesh, outputs and gradients, and at (1, 1) moe_fwd_sharded
+    # within 1e-6 of moe_fwd (of each tensor's largest magnitude)
+    def moe_path():
+        import dataclasses
+        import torch.distributed as dist
+        from repro_torch.configs import get_arch
+        from repro_torch.configs.base import LMConfig
+        from repro_torch.core.sharded_index import Mesh
+        from repro_torch.data.lm_data import MarkovTokens
+        from repro_torch.launch import steps
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import transformer as tr
+        from repro_torch.models.layers import Axes
+        from repro_torch.train.train_state import value_and_grad
+        from repro_torch.tree import (flatten_with_names, leaves,
+                                      module_tree, tree_map)
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "moe: fp32 products are not IEEE fp32")
+        cells = (  # arch, cell, variant, timed runs, warm-up runs
+            ("granite-moe-1b-a400m", "prefill_32k", "attn=blockwise,batch=1",
+             2, 0),
+            ("granite-moe-1b-a400m", "decode_32k", "batch=32", 10, 2),
+            ("granite-moe-1b-a400m", "train_4k", "batch=4", 3, 0),
+            ("llama4-maverick-400b-a17b", "prefill_32k",
+             "nl=2,attn=blockwise,batch=1", 2, 0),
+            ("llama4-maverick-400b-a17b", "decode_32k", "nl=2,batch=64", 10,
+             2))
+        moe_launches = collections.Counter()
+        gen = torch.Generator(device=dev)
+
+        def lm_cfg(arch, variant):
+            return steps._apply_lm_variant(get_arch(arch).config, variant)
+
+        def max_err(got, want):
+            return float((got.double() - want.double()).abs().max())
+
+        # 1. prefill and decode against forward at a capacity that drops
+        # nothing (a call's capacity follows its token count)
+        gate_errs, gate_s = {}, {}
+        t0 = time.perf_counter()
+        for arch, variant, f32 in (("granite-moe-1b-a400m", "cap=4", True),
+                                   ("llama4-maverick-400b-a17b",
+                                    "nl=2,cap=128", False)):
+            cfg = lm_cfg(arch, variant)
+            if f32:
+                cfg = dataclasses.replace(cfg, compute_dtype="float32")
+            model = tr.init_lm(gen.manual_seed(3), cfg, dev)
+            tok = torch.from_numpy(MarkovTokens(cfg.vocab_size, seed=3)
+                                   .sample(1, 2048)).to(dev)
+            with torch.no_grad():
+                full = tr.forward(model, tok, cfg)[0]
+                cache = tr.init_cache(cfg, 1, 2049, torch.float32 if f32
+                                      else torch.bfloat16, dev)
+                pre, cache = tr.decode_step(model, cache, tok[:, :2048], 0,
+                                            cfg, last_only=True)
+                nxt, _ = tr.decode_step(model, cache, tok[:, 2048:], 2048,
+                                        cfg)
+            for tag, got, want in (("prefill", pre[:, 0], full[:, 2047]),
+                                   ("decode", nxt[:, 0], full[:, 2048])):
+                err = max_err(got, want)
+                ok = bool(torch.allclose(got, want, rtol=2e-3, atol=2e-3)) \
+                    if f32 else err <= 2.0 ** -6 * float(want.abs().max())
+                check(ok, f"moe {arch} {tag} against forward: {err}")
+                gate_errs[f"{arch} {tag}"] = err
+            del model, full, cache, pre, nxt
+            torch.cuda.empty_cache()
+
+        gate_s["prefill_decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # 2. gradients of small f32 MoE LMs against float64 on the CPU, the
+        # float64 run on the card's routing
+        orig_top_k = moe_mod._top_k
+
+        class Routes:
+            """``moe._top_k`` on the card (``card`` None: each layer's
+            experts recorded), or replaying the card's record: the
+            probabilities at the card's experts, so that float64 routes as
+            the card did (a probability within rounding of another's may
+            rank otherwise in float64); ``flips`` counts the tokens whose
+            own float64 choice differs."""
+
+            def __init__(self, card=None):
+                self.card, self.sel, self.flips = card, [], 0
+
+            def __call__(self, probs, k):
+                vals, ids = orig_top_k(probs, k)
+                if self.card is None:
+                    self.sel.append(ids)
+                    return vals, ids
+                ids_c = self.card.sel[len(self.sel)].to(probs.device)
+                self.sel.append(ids_c)
+                self.flips += int((ids != ids_c).any(-1).sum())
+                return torch.gather(probs, -1, ids_c), ids_c
+
+        grad_cfgs = {
+            "moe top-2": LMConfig(
+                name="grad-moe", n_layers=2, d_model=128, n_heads=4,
+                n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=1000,
+                moe=True, n_experts=8, top_k=2, capacity_factor=1.25,
+                param_dtype="float32", compute_dtype="float32"),
+            "dense_moe top-1 shared": LMConfig(
+                name="grad-dense-moe", n_layers=2, d_model=128, n_heads=4,
+                n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=1000,
+                moe=True, moe_every=2, n_experts=8, top_k=1,
+                shared_expert=True, capacity_factor=1.25,
+                sliding_window=8, global_every=2,
+                param_dtype="float32", compute_dtype="float32")}
+        grad_rows = {}
+        for tag, gcfg in grad_cfgs.items():
+            g64cfg = dataclasses.replace(gcfg, param_dtype="float64",
+                                         compute_dtype="float64")
+            model = tr.init_lm(gen.manual_seed(5), gcfg, dev)
+            m64 = tr.LM(g64cfg, tree_map(
+                lambda t: t.detach().double().cpu().requires_grad_(),
+                module_tree(model)))
+            batch = steps.lm_tokens(gcfg, 4, 64, 5, dev)
+            b64 = {k_: v_.cpu() for k_, v_ in batch.items()}
+            card_routes, host_routes = Routes(), None
+            try:
+                moe_mod._top_k = card_routes
+                loss, _, g = value_and_grad(lambda p, b_: tr.loss_fn(
+                    p, b_, gcfg), model, batch)
+                host_routes = moe_mod._top_k = Routes(card_routes)
+                loss64, _, g64 = value_and_grad(lambda p, b_: tr.loss_fn(
+                    p, b_, g64cfg), m64, b64)
+            finally:
+                moe_mod._top_k = orig_top_k
+            check(len(host_routes.sel) == len(card_routes.sel),
+                  f"moe grad gate {tag}: {len(card_routes.sel)} routings on "
+                  f"the card, {len(host_routes.sel)} in float64")
+            t_tok = 4 * 64
+            cap = int(max(gcfg.top_k * gcfg.capacity_factor * t_tok
+                          / gcfg.n_experts, 4))
+            dropped = sum(int((moe_mod._position_in_expert(
+                s_.reshape(-1), gcfg.n_experts) >= cap).sum())
+                for s_ in card_routes.sel)
+            check(dropped > 0, f"moe grad gate {tag}: no token dropped")
+            check(abs(float(loss) - float(loss64)) <= 1e-4 * abs(
+                float(loss64)), f"moe grad gate {tag}: loss {float(loss)} "
+                                f"{float(loss64)}")
+            top = max(float(w.abs().max()) for w in leaves(g64))
+            worst = headroom = 0.0
+            for (name, x), w in zip(flatten_with_names(g), leaves(g64)):
+                x = x.double().cpu()
+                check(bool(torch.allclose(x, w, rtol=1e-4, atol=1e-6 * top)),
+                      f"moe gradient {tag} {name}: {max_err(x, w)}")
+                worst = max(worst, max_err(x, w) / top)
+                headroom = max(headroom, float(((x - w).abs() / (
+                    1e-4 * w.abs() + 1e-6 * top)).max()))
+            grad_rows[tag] = {"max_abs_err_over_top": worst,
+                              "max_err_over_tolerance": headroom,
+                              "slots_dropped": dropped,
+                              "routings": len(card_routes.sel),
+                              "float64_own_choice_differs":
+                                  host_routes.flips}
+            del model, m64
+
+        gate_s["grad"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # 3. the expert-parallel paths on a one-rank NCCL group, bit for bit
+        # the group-less mesh; at (1, 1) moe_fwd_sharded against moe_fwd
+        t_l, d_l, f_l, e_l = 2048, 256, 512, 8
+        lg = torch.Generator(device=dev).manual_seed(6)
+        layer = moe_mod.init_moe(lg, d_l, f_l, e_l, torch.float32, True, dev)
+        x_l = torch.randn(t_l, d_l, generator=lg, device=dev)
+        ct_l = torch.randn(t_l, d_l, generator=lg, device=dev)
+
+        def layer_run(path, kw, mesh):
+            p_ = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                          layer)
+            xx = x_l.clone().requires_grad_()
+            if path == "local":
+                out, aux = moe_mod.moe_fwd(p_, xx, n_experts=e_l, top_k=2,
+                                           capacity_factor=1.25)
+            elif path == "sharded":
+                out, aux = moe_mod.moe_fwd_sharded(
+                    p_, xx, n_experts=e_l, top_k=2, capacity_factor=1.25,
+                    axes=Axes(("data",), "model", mesh), **kw)
+            else:
+                out, aux = moe_mod.moe_fwd_a2a(
+                    p_, xx, n_experts=e_l, capacity_factor=1.25,
+                    axes=Axes(("data",), "model", mesh), **kw)
+            gs = torch.autograd.grad(torch.sum(out * ct_l) + 0.1 * aux,
+                                     leaves(p_) + [xx])
+            return [out.detach(), aux.detach()] + list(gs)
+
+        ep_cases = (("sharded", {}), ("sharded", {"fsdp": True}),
+                    ("sharded", {"fsdp": True, "gather_quant": True}),
+                    ("a2a", {}))
+        plain_mesh = Mesh((1, 1), device=dev)
+        ep_rows = {}
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            nccl_mesh = Mesh((1, 1), device=dev, group=dist.group.WORLD)
+            for path_, kw in ep_cases:
+                name = path_ + "".join(f" {k_}" for k_ in kw)
+                want = layer_run(path_, kw, plain_mesh)
+                (got,), launches, ref_calls = counted(
+                    torch, counters, lambda: (layer_run(path_, kw,
+                                                        nccl_mesh),))
+                require(launches, ref_calls, (), f"moe nccl {name}")
+                check(all(torch.equal(a_, b_) for a_, b_ in zip(got, want)),
+                      f"moe: the NCCL group computes otherwise ({name})")
+                ep_rows[name] = "bit for bit"
+            nccl_backend = dist.get_backend(dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+        local = layer_run("local", {}, None)
+        sharded = layer_run("sharded", {}, plain_mesh)
+        # each tensor (output, aux, gradients) within 1e-6 of its largest
+        # magnitude: the two run their products on cap and cap + 1 slots
+        one_cell_err = max(max_err(a_, b_) / float(b_.abs().max())
+                           for a_, b_ in zip(sharded, local))
+        check(one_cell_err <= 1e-6,
+              f"moe: moe_fwd_sharded at (1, 1) against moe_fwd "
+              f"{one_cell_err}")
+        del layer, x_l, ct_l, local, sharded
+        gate_s["expert_parallel"] = time.perf_counter() - t0
+        emit({"phase": "moe", "card": smi, "gate_seconds": gate_s, "gates": {
+            "prefill_decode_vs_forward_max_abs_err": gate_errs,
+            "grad_vs_f64_on_card_routing": grad_rows,
+            "nccl_one_rank_vs_groupless": ep_rows,
+            "nccl_backend": nccl_backend,
+            "sharded_1x1_vs_local_max_err_over_largest": one_cell_err}})
+        torch.cuda.empty_cache()
+
+        # 4. the cells
+        lm_cell_rows("moe", cells, gen, moe_launches)
+        return dict(moe_launches)
+
+    launches_by_path["moe"] = moe_path()
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

@@ -2,8 +2,8 @@
 ``repro/launch/steps.py``): (arch x shape-cell x mesh) -> a step function,
 its arguments' shapes, and a way to make them.
 
-For every dense LM train, prefill and decode cell and every recsys train,
-serve and retrieval cell this builds a ``CellProgram``:
+For every LM train, prefill and decode cell (dense and MoE) and every
+recsys train, serve and retrieval cell this builds a ``CellProgram``:
   * ``fn``, the step: serve and retrieval run under ``torch.no_grad``;
     train (``fn(state, batch) -> (state, {"loss"})``) takes one AdamW
     step (``adamw(constant_schedule(1e-3))``) on the reference's BCE with
@@ -33,8 +33,9 @@ tokens; prefill (``fn(params, cache, tokens) -> (logits, cache)``) runs
 cache, tokens, pos)``) one token a sequence.  Both take a bf16 cache
 whatever the compute dtype, write it in place and return it; decode's
 ``make_args`` fills it with seeded normal values and sets ``pos`` to its
-last slot, so a step reads the whole cache.  The MoE configurations raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 9(b)).
+last slot, so a step reads the whole cache.  The MoE configurations
+(granite-moe-1b, llama4-maverick-400b) build the same programs; with no
+mesh passed to the model their MoE layers run the local ``moe_fwd``.
 
 The reference's ``in_shardings`` place the inputs over a TPU mesh; one
 process has no counterpart.  The mesh is the port's logical
@@ -698,9 +699,6 @@ def build_cell(arch_id: str, cell_name: str, mesh: Optional[Mesh] = None,
     if spec.family == "lm":
         rest, batch = _lm_batch_variant(variant)
         cfg = _apply_lm_variant(spec.config, rest)
-        if tr.structure(cfg) != "dense":
-            raise NotImplementedError(f"{arch_id}/{cell_name}: "
-                                      f"{tr.MOE_NOT_PORTED}")
         spec = dataclasses.replace(spec, config=cfg)
         b = batch or cell.global_batch
         if cell.kind == "train":

@@ -10,12 +10,13 @@ registered production config.  Every model trains through
 ``train/train_loop.train`` with AdamW on a cosine schedule (weight decay
 0.01): checkpoint cadence and resume (``--ckpt-every``, ``--ckpt-dir``;
 either package's checkpoints), the preemption check and the straggler
-watchdog.  The dense language models (``smollm-135m``, ``gemma3-4b``,
-``stablelm-12b``) train ``models/transformer.loss_fn`` on
-``MarkovTokens(vocab, seed=0)`` batches of ``--batch`` x ``--seq``; the
-recommenders (``mind``, ``dlrm-mlperf``, ``autoint``, ``wide-deep``) the
-reference's BCE, ignoring ``--seq`` as the reference does.  The MoE
-language models and the ``gnn`` family exit with "not ported yet"
+watchdog.  The language models (``smollm-135m``, ``gemma3-4b``,
+``stablelm-12b``, and the MoE ``granite-moe-1b-a400m`` and
+``llama4-maverick-400b-a17b``) train ``models/transformer.loss_fn`` (its
+aux term included) on ``MarkovTokens(vocab, seed=0)`` batches of
+``--batch`` x ``--seq``; the recommenders (``mind``, ``dlrm-mlperf``,
+``autoint``, ``wide-deep``) the reference's BCE, ignoring ``--seq`` as
+the reference does.  The ``gnn`` family exits with "not ported yet"
 (ROADMAP.md queue 1 item 9).  ``main(argv)`` returns the loop's history.
 """
 from __future__ import annotations
@@ -77,8 +78,7 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
 
     spec = get_arch(args.arch)
-    if spec.family == "gnn" or (spec.family == "lm"
-                                and tr.structure(spec.config) != "dense"):
+    if spec.family == "gnn":
         raise SystemExit(f"[train] {args.arch}: the {spec.family} train "
                          f"program is {NOT_PORTED}")
     dev = resolve_device(None if args.device == "cuda" else args.device)

@@ -1,2 +1,3 @@
 """Model code (port of ``repro/models/``): ``layers``, ``recsys``,
-``attention`` and the dense ``transformer``."""
+``attention``, ``moe`` and the ``transformer`` (dense, MoE and
+interleaved)."""

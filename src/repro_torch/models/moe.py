@@ -1,0 +1,628 @@
+"""Mixture-of-Experts FFN with sort-free scatter dispatch (top-k, capacity)
+(port of ``repro/models/moe.py``).
+
+Tokens are routed with a scatter to an (E, capacity + 1, D) buffer laid out
+expert-major; slot ``capacity`` of each expert is the drop slot, which
+takes every token past the expert's capacity and never reaches an output
+or a gradient (``torch.where(keep, ...)``).  Position-in-expert is a stable
+argsort of the expert ids, a ``searchsorted`` and an inverse permutation,
+so it equals the reference's exactly; the top-k keeps the lower expert id
+among equal probabilities, as ``jax.lax.top_k`` does (a stable descending
+sort).  Nothing selects tokens with a boolean mask, so a layer makes no
+host sync.  The expert products are ``torch.bmm`` over the expert axis on
+all ``capacity + 1`` slots, as the reference's einsums run on them.
+
+The expert-parallel paths (``moe_fwd_sharded``: each tp cell runs its
+E / tp experts over its dp shard's tokens and a psum over tp combines;
+``moe_fwd_a2a``: top-1 buckets exchanged by two all-to-alls) run over the
+port's ``core.sharded_index.Mesh``.  Without a process group every cell
+runs in this process in turn: the psum is a sum of the cells' partials,
+the all-to-alls an exchange of bucket rows between the cells of one dp
+row, the fsdp weight gather a concatenation of the dp shards.  With a
+group each rank holds one cell; every rank passes the same ``x`` and
+``params`` and gets the group-less mesh's output, aux loss and gradients.
+The collectives run over the whole group (a rank's chunk for a rank
+outside its dp row or tp column is empty or zero): the psum an
+``all_reduce``, the all-to-alls ``all_to_all_single``, the weight gathers
+``all_gather_into_tensor``, their backward ``reduce_scatter_tensor``; the
+gradients of the cells' replicated inputs are summed over the group in
+the backward, as the reference's replicated inputs are.  Each collective
+is a ``torch.autograd.Function`` whose backward is its transpose: the
+psum's passes each cell's partial the cotangent unchanged.
+
+``make_quantized_all_gather`` is the reference's ``custom_vjp``: an int8
+gather of the weights with per-(expert, column) scales, whose backward is
+the straight-through transpose (a reduce-scatter of the cotangent).
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import Axes, normal, upcast
+
+
+def init_moe(generator: torch.Generator | None, d_model: int, d_ff: int,
+             n_experts: int, dtype: torch.dtype, shared_expert: bool,
+             device: torch.device | str | None = None,
+             lead: tuple[int, ...] = ()) -> dict:
+    """The layer's parameters drawn from ``generator`` on ``device`` (the
+    GPU unless ``device="cpu"``; ``"meta"`` allocates nothing; ``lead``
+    stacks them, as the transformer's layers are stacked): the router f32
+    N(0, 1/d_model), experts and shared expert N(0, 1/d_in) in
+    ``dtype``."""
+    dev = torch.device("meta") if device is not None and torch.device(
+        device).type == "meta" else resolve_device(device)
+    p = {
+        "router": _draw(generator, lead + (d_model, n_experts),
+                        1.0 / math.sqrt(d_model), torch.float32, dev),
+        "w_gate": _expert_init(generator, n_experts, d_model, d_ff, dtype,
+                               dev, lead),
+        "w_up": _expert_init(generator, n_experts, d_model, d_ff, dtype,
+                             dev, lead),
+        "w_down": _expert_init(generator, n_experts, d_ff, d_model, dtype,
+                               dev, lead),
+    }
+    if shared_expert:
+        p["shared"] = {
+            "w_gate": _draw(generator, lead + (d_model, d_ff),
+                            1.0 / math.sqrt(d_model), dtype, dev),
+            "w_up": _draw(generator, lead + (d_model, d_ff),
+                          1.0 / math.sqrt(d_model), dtype, dev),
+            "w_down": _draw(generator, lead + (d_ff, d_model),
+                            1.0 / math.sqrt(d_ff), dtype, dev),
+        }
+    return p
+
+
+def _expert_init(generator, e, d_in, d_out, dtype, device: torch.device,
+                 lead: tuple[int, ...] = ()) -> torch.Tensor:
+    return _draw(generator, lead + (e, d_in, d_out), 1.0 / math.sqrt(d_in),
+                 dtype, device)
+
+
+# f32 draws of at most this many elements at a time (1 GiB): llama4's
+# experts are three (2, 128, 5120, 8192) leaves, whose whole f32 draw would
+# be a 21.5 GB transient beside the bf16 parameters
+_DRAW_CHUNK = 1 << 28
+
+
+def _draw(generator, shape: tuple[int, ...], scale: float,
+          dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """N(0, scale^2) of ``shape`` in ``dtype``, drawn in f32 one slab of
+    leading rows at a time and cast before the next is drawn."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if device.type == "meta":
+        return out
+    flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out.view(1,
+                                                                     *shape)
+    per = max(1, _DRAW_CHUNK // (flat[0].numel() or 1))
+    for lo in range(0, flat.shape[0], per):
+        part = flat[lo:lo + per]
+        part.copy_(normal(generator, tuple(part.shape), device).mul_(scale))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+
+def _position_in_expert(expert_ids: torch.Tensor, n_experts: int
+                        ) -> torch.Tensor:
+    """Rank of each routed slot among slots sent to the same expert.
+
+    expert_ids: (M,) int.  A stable argsort groups same-expert slots;
+    position = index within group, scattered back to the original slot
+    order.
+    """
+    m = expert_ids.shape[0]
+    ids = expert_ids.long()
+    order = torch.argsort(ids, stable=True)
+    sorted_e = ids[order]
+    start = torch.searchsorted(sorted_e, torch.arange(
+        n_experts, dtype=torch.long, device=ids.device))
+    pos_sorted = torch.arange(m, dtype=torch.long,
+                              device=ids.device) - start[sorted_e]
+    return torch.empty_like(pos_sorted).index_put_((order,), pos_sorted)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """(values, ids) of each row's ``k`` largest, the lower id first among
+    equal values (``jax.lax.top_k``'s order)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], ids[:, :k]
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """(probs, gate, sel): the router's f32 softmax over (T, E) and each
+    token's ``top_k`` probabilities and experts."""
+    logits = upcast(x) @ upcast(router)
+    probs = torch.softmax(logits, dim=-1)
+    gate, sel = _top_k(probs, top_k)
+    return probs, gate, sel
+
+
+def _aux(probs: torch.Tensor, first: torch.Tensor, n_experts: int
+         ) -> torch.Tensor:
+    """The switch-style load-balance loss: E * sum(density * mean(probs)),
+    density the share of tokens whose first choice is each expert (no
+    gradient)."""
+    density = torch.mean(F.one_hot(first, n_experts).to(probs.dtype), dim=0)
+    return n_experts * torch.sum(density * torch.mean(probs, dim=0))
+
+
+def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+             wd: torch.Tensor) -> torch.Tensor:
+    """(E, C, D) -> (E, C, D): each expert's SwiGLU on its slots."""
+    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    return torch.bmm(h, wd)
+
+
+def _ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def _pad_row_slot(y: torch.Tensor) -> torch.Tensor:
+    """(E, C, D) -> (E + 1, C + 1, D), zeros in the new row and slot."""
+    return F.pad(y, (0, 0, 0, 1, 0, 1))
+
+
+def moe_fwd(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+            capacity_factor: float, axes: Axes | None = None):
+    """x: (T, D) token-major. Returns (out (T, D), aux_loss scalar)."""
+    t, d = x.shape
+    cap = int(max(top_k * capacity_factor * t / n_experts, 4))
+
+    probs, gate, sel = _route(x, params["router"], top_k)      # (T, k)
+    gate = gate / torch.sum(gate, dim=-1, keepdim=True)        # renormalize
+    aux = _aux(probs, sel[:, 0], n_experts)
+
+    # ---- scatter dispatch: (E, cap + 1, D), slot ``cap`` the drop slot
+    flat_e = sel.reshape(-1)                                   # (T*k,)
+    pos = _position_in_expert(flat_e, n_experts)
+    keep = pos < cap
+    slot = torch.where(keep, pos, cap)
+    x_rep = torch.repeat_interleave(x, top_k, dim=0)           # (T*k, D)
+    buf = x.new_zeros((n_experts, cap + 1, d)).index_put(
+        (flat_e, slot), x_rep)
+
+    y = _experts(buf, params["w_gate"], params["w_up"], params["w_down"])
+
+    # ---- combine: the drop slot's rows never reach the output
+    out_rep = y[flat_e, slot] * gate.reshape(-1, 1).to(y.dtype)
+    out_rep = torch.where(keep[:, None], out_rep, 0.0)
+    out = torch.sum(out_rep.reshape(t, top_k, d), dim=1)
+
+    out = out.to(x.dtype)   # gate is f32; don't promote the residual
+    if "shared" in params:
+        out = out + _ffn(params["shared"], x)
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# the mesh's cells and their collectives
+# ---------------------------------------------------------------------------
+
+
+class _Grid:
+    """The (dp, tp) layout of ``mesh``: ``local`` lists the cells this
+    process holds (every cell, or with a group this rank's one) as (dp
+    index, the ``dp`` axes raveled in their order; tp index)."""
+
+    def __init__(self, mesh, dp: Sequence[str], tp: str):
+        dp = tuple(dp)
+        if sorted(dp + (tp,)) != sorted(mesh.axis_names):
+            raise ValueError(f"dp axes {dp} + tp axis {tp!r} must name each "
+                             f"axis of mesh {mesh.axis_names} once")
+        if mesh.group is not None and mesh.world != mesh.n_cells:
+            raise ValueError(
+                f"the MoE layer takes one rank a cell: {mesh.world} ranks "
+                f"for the {mesh.n_cells} cells of mesh "
+                f"{tuple(mesh.shape.values())}")
+        self.mesh, self.group, self.dp, self.tp = mesh, mesh.group, dp, tp
+        self.dp_n = math.prod(mesh.shape[a] for a in dp)
+        self.tp_n = mesh.shape[tp]
+        sizes = [mesh.shape[a] for a in mesh.axis_names]
+        self.local = []
+        for flat in mesh.local_cells():
+            c = dict(zip(mesh.axis_names, np.unravel_index(flat, sizes)))
+            di = int(np.ravel_multi_index([c[a] for a in dp],
+                                          [mesh.shape[a] for a in dp])) \
+                if dp else 0
+            self.local.append((di, int(c[tp])))
+
+
+def _peers(mesh, cell: int, axes: tuple[str, ...]) -> list[int]:
+    """Flat cells that share ``cell``'s coordinates off ``axes``, raveled
+    over ``axes`` in their order."""
+    sizes = [mesh.shape[a] for a in mesh.axis_names]
+    mine = dict(zip(mesh.axis_names, np.unravel_index(cell, sizes)))
+    out = []
+    for idx in np.ndindex(*[mesh.shape[a] for a in axes]):
+        c = dict(mine, **dict(zip(axes, idx)))
+        out.append(int(np.ravel_multi_index([c[a] for a in mesh.axis_names],
+                                            sizes)))
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """Forward: the sum over the mesh's group.  Backward: the cotangent
+    unchanged, since every rank holds the same loss of the sum."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        import torch.distributed as dist
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=mesh.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrads(torch.autograd.Function):
+    """Forward: the identity.  Backward: the cotangent summed over the
+    mesh's group, the gradient of an input every rank holds a copy of."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mesh.group)
+        return g, None
+
+
+def _gather_over_group(t: torch.Tensor, mesh) -> torch.Tensor:
+    """(world, *t.shape): every rank's ``t``, in rank order."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    out = t.new_empty((mesh.world * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=mesh.group)
+    return out.view((mesh.world,) + tuple(t.shape))
+
+
+class _AllGather(torch.autograd.Function):
+    """The shards of ranks ``peers`` concatenated along ``dim`` (forward:
+    ``all_gather_into_tensor``) and the reduce-scatter of the cotangent
+    (backward: this rank's slice summed over ``peers``).  Under ``quant``
+    each shard travels as int8 with its per-column scales and is
+    dequantized after the gather; the backward goes straight through the
+    quantization."""
+
+    @staticmethod
+    def forward(ctx, shard, mesh, peers, dim, quant):
+        ctx.mesh, ctx.peers, ctx.dim = mesh, peers, dim
+        if quant:
+            q, scale = _quantize(shard, dim)
+            qs = _gather_over_group(q, mesh)
+            ss = _gather_over_group(scale, mesh)
+            parts = [_dequantize(qs[r], ss[r], shard.dtype) for r in peers]
+        else:
+            every = _gather_over_group(shard, mesh)
+            parts = [every[r] for r in peers]
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        mesh, peers = ctx.mesh, ctx.peers
+        parts = torch.chunk(g, len(peers), dim=ctx.dim)
+        zero = torch.zeros_like(parts[0])
+        send = torch.cat([parts[peers.index(r)] if r in peers else zero
+                          for r in range(mesh.world)]).contiguous()
+        out = torch.empty_like(zero)
+        dist.reduce_scatter_tensor(out, send, group=mesh.group)
+        return out, None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Row ``j`` of ``t`` (len(peers), ...) to rank ``peers[j]``, row ``j``
+    of the result from it (``all_to_all_single``, empty splits to every
+    other rank).  Its own transpose: the backward exchanges the cotangent
+    the same way."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, peers):
+        ctx.mesh, ctx.peers = mesh, peers
+        return _exchange(t, mesh, peers)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.mesh, ctx.peers), None, None
+
+
+def _exchange(t: torch.Tensor, mesh, peers: list[int]) -> torch.Tensor:
+    import torch.distributed as dist
+    order = sorted(range(len(peers)), key=lambda j: peers[j])  # rank order
+    rows = t.reshape(t.shape[0], -1)[order].contiguous()
+    splits = [int(r in peers) for r in range(mesh.world)]
+    got = torch.empty_like(rows)
+    dist.all_to_all_single(got, rows, splits, splits, group=mesh.group)
+    out = torch.empty_like(got)
+    out[order] = got
+    return out.reshape(t.shape)
+
+
+def _quantize(w: torch.Tensor, axis: int):
+    """int8 of ``w`` and its scales max|w| / 127 + 1e-12 over ``axis``
+    (one per (expert, column))."""
+    scale = torch.amax(torch.abs(w), dim=axis, keepdim=True) / 127.0
+    scale = scale + 1e-12
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
+                ) -> torch.Tensor:
+    return q.to(dtype) * scale.to(dtype)
+
+
+class _QuantizedConcat(torch.autograd.Function):
+    """The group-less quantized gather: each shard quantized on its own,
+    dequantized and concatenated along ``axis``; the backward hands each
+    shard its slice of the cotangent (straight through)."""
+
+    @staticmethod
+    def forward(ctx, axis, *shards):
+        ctx.axis, ctx.sizes = axis, [s.shape[axis] for s in shards]
+        return torch.cat([_dequantize(*_quantize(s, axis), s.dtype)
+                          for s in shards], dim=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(torch.split(g, ctx.sizes, dim=ctx.axis))
+
+
+def make_quantized_all_gather(axis_names, axis: int, mesh=None):
+    """int8-compressed weight all-gather over the mesh axes ``axis_names``
+    (forward) with the exact transpose of the gather (backward).
+
+    Each shard is quantized to int8 with per-(expert, column) scales
+    ``max|w| / 127 + 1e-12`` over ``axis``, gathered, dequantized and
+    concatenated along ``axis``; the backward is a reduce-scatter of the
+    cotangent (quantization treated as identity).  Without a group
+    (``mesh`` None or group-less) the process holds every shard, so the
+    returned ``qag`` takes them all, a sequence in gather order; with one,
+    ``qag`` takes this rank's shard and gathers those of the ranks whose
+    cells differ from its own only on ``axis_names``.
+    """
+    if mesh is None or mesh.group is None:
+        def qag(shards):
+            return _QuantizedConcat.apply(axis, *shards)
+        return qag
+    peers = _peers(mesh, mesh.rank, tuple(axis_names))
+
+    def qag_group(w_loc):
+        return _AllGather.apply(w_loc, mesh, peers, axis, True)
+    return qag_group
+
+
+def _expert_weights(grid: _Grid, w: torch.Tensor, di: int, ti: int,
+                    e_local: int, fsdp: bool, quant: bool) -> torch.Tensor:
+    """Cell (di, ti)'s experts of ``w`` (E, d_in, d_out): the tp shard of
+    E / tp experts, under ``fsdp`` gathered over dp from each dp cell's
+    d_in / dp rows (int8 under ``quant``)."""
+    block = w[ti * e_local:(ti + 1) * e_local]
+    if not fsdp:
+        return block
+    rows = block.shape[1] // grid.dp_n
+    if grid.group is None:
+        if not quant:   # the dp shards concatenated are the block
+            return block
+        return make_quantized_all_gather(grid.dp, 1)(
+            torch.split(block, rows, dim=1))
+    shard = block[:, di * rows:(di + 1) * rows]
+    if quant:
+        return make_quantized_all_gather(grid.dp, 1, grid.mesh)(shard)
+    return _AllGather.apply(shard, grid.mesh,
+                            _peers(grid.mesh, grid.mesh.rank, grid.dp), 1,
+                            False)
+
+
+def _replicated(grid: _Grid, *tensors):
+    """With a group, the cells' copies of inputs every rank holds: their
+    gradients are summed over the group in the backward."""
+    if grid.group is None:
+        return tensors
+    return tuple(_SumGrads.apply(t, grid.mesh) for t in tensors)
+
+
+def _mean_aux(grid: _Grid, auxes: list[torch.Tensor]) -> torch.Tensor:
+    """The mean over every cell of the mesh of each cell's aux."""
+    if grid.group is None:
+        return torch.mean(torch.stack(auxes))
+    return _AllReduce.apply(torch.stack(auxes).sum(), grid.mesh) \
+        / grid.mesh.n_cells
+
+
+def _combine(grid: _Grid, parts: dict[int, torch.Tensor], n_chunks: int
+             ) -> torch.Tensor:
+    """(T, D) from the row chunks ``parts`` (chunk index -> rows, ``n_chunks``
+    chunks of equal size): without a group they are every chunk,
+    concatenated; with one, this rank's chunks in place in zeros, summed
+    over the group (the reference's psum over tp, then its output's
+    gather)."""
+    if grid.group is None:
+        return torch.cat([parts[c] for c in sorted(parts)])
+    first = next(iter(parts.values()))
+    n = first.shape[0]
+    full = first.new_zeros((n_chunks * n,) + tuple(first.shape[1:]))
+    for c, part in parts.items():
+        full = full.index_copy(0, torch.arange(c * n, (c + 1) * n,
+                                               device=part.device), part)
+    return _AllReduce.apply(full, grid.mesh)
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel dispatch: the psum-combine path
+# ---------------------------------------------------------------------------
+
+
+def moe_fwd_sharded(params: dict, x: torch.Tensor, *, n_experts: int,
+                    top_k: int, capacity_factor: float, axes: Axes,
+                    fsdp: bool = False, expert_fsdp: int = -1,
+                    gather_quant: bool = False):
+    """x: (T, D) token-major, its rows split over dp. Requires axes.mesh.
+
+    Cell (di, ti) routes dp shard di's tokens, keeps the (token, slot)
+    pairs owned by its E / tp experts (the others go to a sentinel
+    bucket), runs its experts at a capacity per (dp shard, expert), and
+    the tp cells' partial outputs are summed."""
+    e_fsdp = fsdp if expert_fsdp == -1 else bool(expert_fsdp)
+    t, d = x.shape
+    grid = _Grid(axes.mesh, axes.dp, axes.tp)
+    dp_n, tp_n = grid.dp_n, grid.tp_n
+    t_local = t // dp_n
+    e_local = n_experts // tp_n
+    cap = int(max(capacity_factor * top_k * t_local / n_experts, 4))
+    xs, router, wg, wu, wd = _replicated(
+        grid, x, params["router"], params["w_gate"], params["w_up"],
+        params["w_down"])
+
+    partials, auxes = {}, []
+    for di, ti in grid.local:
+        ws = [_expert_weights(grid, w, di, ti, e_local, e_fsdp, gather_quant)
+              for w in (wg, wu, wd)]
+        x_loc = xs[di * t_local:(di + 1) * t_local]
+        part, aux = _sharded_cell(x_loc, router, *ws, e0=ti * e_local,
+                                  e_local=e_local, n_experts=n_experts,
+                                  top_k=top_k, cap=cap)
+        auxes.append(aux)
+        # the psum over tp: the tp cells' partials in tp order
+        partials[di] = part if di not in partials else partials[di] + part
+    out = _combine(grid, partials, dp_n)
+    out = out.to(x.dtype)
+    if "shared" in params:
+        out = out + _ffn(params["shared"], x)
+    return out, _mean_aux(grid, auxes)
+
+
+def _sharded_cell(x_loc, router, wg, wu, wd, *, e0: int, e_local: int,
+                  n_experts: int, top_k: int, cap: int):
+    """One (dp, tp) cell of ``moe_fwd_sharded``: (partial (T_loc, D),
+    aux)."""
+    t_local, d = x_loc.shape
+    probs, gate, sel = _route(x_loc, router, top_k)           # (T_loc, k)
+    gate = gate / torch.sum(gate, dim=-1, keepdim=True)
+    aux = _aux(probs, sel[:, 0], n_experts)
+
+    flat_e = sel.reshape(-1)                                  # (T_loc*k,)
+    mine = (flat_e >= e0) & (flat_e < e0 + e_local)
+    eloc = torch.where(mine, flat_e - e0, e_local)            # sentinel
+    pos = _position_in_expert(eloc, e_local + 1)
+    keep = mine & (pos < cap)
+    slot = torch.where(keep, pos, cap)
+    erow = torch.where(keep, eloc, e_local)
+    x_rep = torch.repeat_interleave(x_loc, top_k, dim=0)
+
+    buf = x_loc.new_zeros((e_local + 1, cap + 1, d)).index_put(
+        (erow, slot), x_rep)[:e_local, :cap]                  # LOCAL scatter
+    y = _experts(buf, wg, wu, wd)                             # (E_loc, cap, D)
+
+    out_rep = _pad_row_slot(y)[erow, slot] * gate.reshape(-1, 1).to(y.dtype)
+    out_rep = torch.where(keep[:, None], out_rep, 0.0)
+    return torch.sum(out_rep.reshape(t_local, top_k, d), dim=1), aux
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel dispatch: top-1 through two all-to-alls
+# ---------------------------------------------------------------------------
+
+
+def moe_fwd_a2a(params: dict, x: torch.Tensor, *, n_experts: int,
+                capacity_factor: float, axes: Axes, fsdp: bool = False,
+                gather_quant: bool = False):
+    """Top-1 expert-parallel dispatch through all-to-alls.
+
+    Tokens are split over dp and tp (cell c = di * tp + ti takes chunk c);
+    each cell routes its T / (dp * tp) tokens, buckets them by destination
+    tp cell (capacity per destination), exchanges buckets with one
+    all-to-all over its dp row, runs its experts (capacity per expert),
+    and a second all-to-all returns the outputs to the tokens' owners."""
+    t, d = x.shape
+    grid = _Grid(axes.mesh, axes.dp, axes.tp)
+    dp_n, tp_n = grid.dp_n, grid.tp_n
+    t_cell = t // (dp_n * tp_n)
+    e_local = n_experts // tp_n
+    cap_d = int(max(capacity_factor * t_cell / tp_n, 4))     # per-dest slots
+    cap_e = int(max(capacity_factor * t_cell / e_local, 4))  # per-expert rows
+    xs, router, wg, wu, wd = _replicated(
+        grid, x, params["router"], params["w_gate"], params["w_up"],
+        params["w_down"])
+
+    # 1. route and bucket by destination tp cell
+    state, sends, auxes = {}, {}, []
+    for di, ti in grid.local:
+        c = di * tp_n + ti
+        x_loc = xs[c * t_cell:(c + 1) * t_cell]
+        probs, _, sel = _route(x_loc, router, 1)
+        sel = sel[:, 0]                                       # (Tc,)
+        auxes.append(_aux(probs, sel, n_experts))
+        dest = torch.div(sel, e_local, rounding_mode="floor")
+        pos = _position_in_expert(dest, tp_n)
+        keep = pos < cap_d
+        slot = torch.where(keep, pos, cap_d)
+        row = torch.where(keep, dest, tp_n)
+        send = x_loc.new_zeros((tp_n + 1, cap_d + 1, d)).index_put(
+            (row, slot), x_loc)[:tp_n, :cap_d]
+        send_e = torch.full((tp_n + 1, cap_d + 1), e_local, dtype=torch.int32,
+                            device=x.device).index_put(
+            (row, slot), (sel % e_local).to(torch.int32))[:tp_n, :cap_d]
+        state[(di, ti)] = (keep, row, slot)
+        sends[(di, ti)] = (send, send_e)
+
+    # 2. one all-to-all each way over the dp row
+    recvs = _all_to_all(grid, sends)
+    backs = {}
+    for (di, ti), (recv, recv_e) in recvs.items():
+        ws = [_expert_weights(grid, w, di, ti, e_local, fsdp, gather_quant)
+              for w in (wg, wu, wd)]
+        rflat = recv.reshape(tp_n * cap_d, d)
+        eflat = recv_e.reshape(tp_n * cap_d)                  # e_local = pad
+        pos_e = _position_in_expert(eflat, e_local + 1)
+        keep_e = (eflat < e_local) & (pos_e < cap_e)
+        erow = torch.where(keep_e, eflat.long(), e_local)
+        eslot = torch.where(keep_e, pos_e, cap_e)
+        buf = rflat.new_zeros((e_local + 1, cap_e + 1, d)).index_put(
+            (erow, eslot), rflat)[:e_local, :cap_e]
+        y = _experts(buf, *ws)                                # (E_loc,cap_e,D)
+        y_slots = torch.where(keep_e[:, None], _pad_row_slot(y)[erow, eslot],
+                              0.0)
+        backs[(di, ti)] = (y_slots.reshape(tp_n, cap_d, d),)
+    backs = _all_to_all(grid, backs)
+
+    # 3. the outputs back at their tokens (top-1: the gate is 1)
+    outs = {}
+    for k, (back,) in backs.items():
+        keep, row, slot = state[k]
+        out = _pad_row_slot(back)[row, slot]
+        outs[k[0] * tp_n + k[1]] = torch.where(keep[:, None], out, 0.0)
+    out = _combine(grid, outs, dp_n * tp_n).to(x.dtype)
+    if "shared" in params:
+        out = out + _ffn(params["shared"], x)
+    return out, _mean_aux(grid, auxes)
+
+
+def _all_to_all(grid: _Grid, sends: dict) -> dict:
+    """Each local cell's tensors (tp, ...): row j to the cell of tp index j
+    in its dp row; row j of the result from that cell."""
+    if grid.group is None:
+        return {(di, ti): tuple(torch.stack([sends[(di, tj)][n][ti]
+                                             for tj in range(grid.tp_n)])
+                                for n in range(len(sends[(di, ti)])))
+                for di, ti in sends}
+    peers = _peers(grid.mesh, grid.mesh.rank, (grid.tp,))
+    return {k: tuple(_AllToAll.apply(t, grid.mesh, peers) for t in ts)
+            for k, ts in sends.items()}

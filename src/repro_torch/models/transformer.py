@@ -1,5 +1,10 @@
-"""Decoder-only transformer LM, dense structure (port of the dense part of
+"""Decoder-only transformer LM: dense / MoE / interleaved (port of
 ``repro/models/transformer.py``).
+
+Structure modes (static, derived from the config), as the reference's:
+  * "dense"     -- n_layers of (attn + SwiGLU FFN);
+  * "moe"       -- n_layers of (attn + MoE FFN)              (granite);
+  * "dense_moe" -- n_layers / 2 groups of [dense, moe]       (llama4).
 
 The model is an ``nn.Module`` (``LM``) built from the reference's params
 tree, whose parameters carry the tree's names (``embed``,
@@ -10,20 +15,29 @@ reference's arrays.  Every layer leaf is stacked along axis 0, as
 ``(n_layers, ...)``, as the reference's scan over layers stacks it; a pass
 splits each stacked leaf once (``torch.unbind``, whose backward is one
 stack) and runs the layers in a Python loop, the reference's ``unroll``
-branch.  The functions keep the reference's names and arguments, with the
-model (or its params tree) in the place of the params dict; ``axes`` is
-accepted and unused, as one process has no mesh to constrain.
+branch; a ``dense_moe`` group's leaves are stacked as ``(n_layers // 2,
+...)`` under ``layers/dense`` and ``layers/moe``.  The functions keep the
+reference's names and arguments, with the model (or its params tree) in
+the place of the params dict.  ``axes`` constrains nothing (one process
+has no sharding to constrain); an ``axes`` with a mesh routes an MoE
+block's tokens as the reference's does: ``models/moe.moe_fwd_a2a`` under
+``cfg.moe_a2a`` at top-1 when the tokens divide dp x tp, else
+``moe_fwd_sharded`` when they divide dp, else the local ``moe_fwd`` (the
+LM cells pass no mesh, so they run ``moe_fwd``).
 
 Numerics follow the reference: each block's parameters are cast to the
 compute dtype (``_cast``), norms compute in f32, attention scores are f32
 (``models/attention``), the logits are the compute dtype's product upcast
 to f32.  ``cfg.remat`` checkpoints each block (and ``chunked_cross_entropy``
-each chunk) with ``torch.utils.checkpoint`` when a gradient is taken.  A
-decode or prefill writes the KV cache in place and returns it.
-
-The MoE structures (``structure(cfg)`` "moe" and "dense_moe") are not
-ported yet: ``init_lm``, ``forward`` and ``decode_step`` raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 9(b)).
+each chunk) with ``torch.utils.checkpoint`` when a gradient is taken; an
+MoE block's checkpoint returns its aux loss too, so the loss's aux term
+keeps its gradient.  ``forward_hidden`` returns the sum of the MoE
+layers' aux losses (0 for the dense structure).  A decode or prefill
+writes the KV cache in place and returns it; a ``dense_moe`` group ``g``
+writes layer ``2g`` (dense) and ``2g + 1`` (MoE) of the ``(n_layers,
+...)`` cache.  An MoE layer's capacity depends on the tokens of the call,
+so a prefill, a decode step and ``forward`` agree only at a capacity that
+drops no token, as the reference's do.
 """
 from __future__ import annotations
 
@@ -38,14 +52,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (Axes, dtype_of, normal, rms_norm,
                                        softmax_cross_entropy, upcast)
 from repro_torch.tree import flatten_with_names, module_tree, tree_map, unflatten
 
 F32 = torch.float32
-MOE_NOT_PORTED = ("the MoE transformer is not ported yet (ROADMAP.md queue 1 "
-                  "item 9(b))")
 
 
 def structure(cfg: LMConfig) -> str:
@@ -54,11 +67,6 @@ def structure(cfg: LMConfig) -> str:
     if cfg.moe:
         return "moe"
     return "dense"
-
-
-def _require_dense(cfg: LMConfig) -> None:
-    if structure(cfg) != "dense":
-        raise NotImplementedError(f"{cfg.name}: {MOE_NOT_PORTED}")
 
 
 def _device(device) -> torch.device:
@@ -85,12 +93,13 @@ class _Node(nn.Module):
 
 
 class LM(_Node):
-    """The dense LM's parameters: ``embed`` (Vpad, D), ``layers`` (each leaf
-    (n_layers, ...)), ``final_norm`` (D,) and, untied, ``unembed`` (D,
-    Vpad).  ``forward(tokens)`` is ``forward(self, tokens, cfg)``."""
+    """The LM's parameters: ``embed`` (Vpad, D), ``layers`` (each leaf
+    (n_layers, ...); for ``dense_moe`` ``layers/dense`` and ``layers/moe``,
+    each (n_layers // 2, ...)), ``final_norm`` (D,) and, untied,
+    ``unembed`` (D, Vpad).  ``forward(tokens)`` is ``forward(self, tokens,
+    cfg)``."""
 
     def __init__(self, cfg: LMConfig, tree: dict):
-        _require_dense(cfg)
         super().__init__(tree)
         self.cfg = cfg
 
@@ -127,21 +136,45 @@ def _init_dense_block(generator, cfg: LMConfig, dtype, device,
     }
 
 
+def _init_moe_block(generator, cfg: LMConfig, dtype, device,
+                    lead: tuple[int, ...] = ()) -> dict:
+    return {
+        "ln1": torch.zeros(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "attn": attn_mod.init_attention(generator, cfg.d_model, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.head_dim, dtype,
+                                        device, lead),
+        "ln2": torch.zeros(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "moe": moe_mod.init_moe(generator, cfg.d_model, cfg.d_ff,
+                                cfg.n_experts, dtype, cfg.shared_expert,
+                                device, lead),
+    }
+
+
 def init_lm(generator: torch.Generator | None, cfg: LMConfig,
             device=None) -> LM:
     """The model drawn from ``generator`` on ``device`` (the GPU unless
     ``device="cpu"``; ``"meta"`` allocates nothing): the reference's
     distributions (dense weights N(0, 1/d_in), the embedding and the
-    unembedding N(0, 0.02^2), norms 0) in ``cfg.param_dtype``."""
-    _require_dense(cfg)
+    unembedding N(0, 0.02^2), norms 0, an MoE layer's router f32) in
+    ``cfg.param_dtype``.  Experts are drawn a slab at a time and cast
+    before the next (``models/moe._draw``)."""
     dev = _device(device)
     dtype = dtype_of(cfg.param_dtype)
     vpad = cfg.padded_vocab
+    struct = structure(cfg)
+    if struct == "dense":
+        layers = _init_dense_block(generator, cfg, dtype, dev,
+                                   (cfg.n_layers,))
+    elif struct == "moe":
+        layers = _init_moe_block(generator, cfg, dtype, dev, (cfg.n_layers,))
+    else:  # dense_moe: groups of [dense, moe]
+        lead = (cfg.n_layers // 2,)
+        layers = {"dense": _init_dense_block(generator, cfg, dtype, dev, lead),
+                  "moe": _init_moe_block(generator, cfg, dtype, dev, lead)}
     tree = {
         "embed": normal(generator, (vpad, cfg.d_model), dev).mul_(0.02
                                                                    ).to(dtype),
-        "layers": _init_dense_block(generator, cfg, dtype, dev,
-                                    (cfg.n_layers,)),
+        "layers": layers,
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -156,8 +189,8 @@ def init_lm(generator: torch.Generator | None, cfg: LMConfig,
 
 
 def _cast(p, dtype):
-    """Cast a param subtree to the compute dtype (norm math re-upcasts
-    internally where precision matters)."""
+    """Cast a param subtree to the compute dtype (norm and router math
+    re-upcast internally where precision matters)."""
     return tree_map(lambda a: a.to(dtype), p)
 
 
@@ -185,13 +218,80 @@ def _dense_block_fwd(p, x, positions, window, cfg: LMConfig,
     return x, new_cache
 
 
-def _layers(params: dict, n_layers: int) -> list[dict]:
-    """The stacked layer tree split into ``n_layers`` trees, each stacked
-    leaf unbound once."""
+def _moe_block_fwd(p, x, positions, window, cfg: LMConfig,
+                   axes: Optional[Axes] = None, cache=None, cache_pos=None):
+    p = _cast(p, x.dtype)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, new_cache = attn_mod.attention_fwd(
+        p["attn"], h, positions, window, softcap=cfg.logit_softcap,
+        cache=cache, cache_pos=cache_pos, **_attn_kwargs(cfg))
+    x = x + a
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    b, s, d = h.shape
+    t_tokens = b * s
+    mesh = None if axes is None else axes.mesh
+    dpn = 1 if mesh is None else math.prod(mesh.shape[a_] for a_ in axes.dp)
+    tpn = 1 if mesh is None else mesh.shape[axes.tp]
+    if mesh is not None and cfg.moe_a2a and cfg.top_k == 1 \
+            and t_tokens % (dpn * tpn) == 0:
+        # top-1 all_to_all dispatch: tokens split over dp x tp
+        out, aux = moe_mod.moe_fwd_a2a(
+            p["moe"], h.reshape(b * s, d), n_experts=cfg.n_experts,
+            capacity_factor=cfg.capacity_factor, axes=axes, fsdp=cfg.fsdp,
+            gather_quant=cfg.moe_gather_quant)
+    elif mesh is not None and t_tokens % dpn == 0:
+        # expert-parallel dispatch (the cells' partials summed over tp)
+        out, aux = moe_mod.moe_fwd_sharded(
+            p["moe"], h.reshape(b * s, d), n_experts=cfg.n_experts,
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor, axes=axes,
+            fsdp=cfg.fsdp, expert_fsdp=cfg.expert_fsdp,
+            gather_quant=cfg.moe_gather_quant)
+    else:
+        out, aux = moe_mod.moe_fwd(
+            p["moe"], h.reshape(b * s, d), n_experts=cfg.n_experts,
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor, axes=axes)
+    x = x + out.reshape(b, s, d)
+    return x, new_cache, aux
+
+
+def _layers(params: dict, n: int) -> list[dict]:
+    """The stacked layer tree split into its ``n`` layers (or groups), each
+    stacked leaf unbound once."""
     named = flatten_with_names(params["layers"])
     parts = [torch.unbind(leaf, 0) for _, leaf in named]
     return [unflatten(params["layers"], [p[i] for p in parts])
-            for i in range(n_layers)]
+            for i in range(n)]
+
+
+def _windows(cfg: LMConfig) -> list:
+    """Each layer's window, or for ``dense_moe`` each group's (dense, MoE)
+    pair."""
+    w = list(cfg.layer_windows)
+    if structure(cfg) == "dense_moe":
+        return list(zip(w[0::2], w[1::2]))
+    return w
+
+
+def _block(cfg: LMConfig, p, x, positions, w, axes, cache=None,
+           cache_pos=None, layer: int = 0):
+    """Layer (or ``dense_moe`` group) ``layer``: (x, aux or None), the
+    cache's layers written in place."""
+    def kv(i):
+        return None if cache is None else KVCache(cache.k[i], cache.v[i])
+
+    struct = structure(cfg)
+    if struct == "dense":
+        return _dense_block_fwd(p, x, positions, w, cfg, axes, kv(layer),
+                                cache_pos)[0], None
+    if struct == "moe":
+        x, _, aux = _moe_block_fwd(p, x, positions, w, cfg, axes, kv(layer),
+                                   cache_pos)
+        return x, aux
+    x, _ = _dense_block_fwd(p["dense"], x, positions, w[0], cfg, axes,
+                            kv(2 * layer), cache_pos)
+    x, _, aux = _moe_block_fwd(p["moe"], x, positions, w[1], cfg, axes,
+                               kv(2 * layer + 1), cache_pos)
+    return x, aux
 
 
 def _unembed(params: dict, cfg: LMConfig) -> torch.Tensor:
@@ -225,18 +325,22 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: LMConfig,
                    axes: Optional[Axes] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Like forward() but stops before the unembedding: (hidden, aux)."""
-    _require_dense(cfg)
     p = _tree(params)
     x = _embed(p, tokens, cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for p_i, w in zip(_layers(p, cfg.n_layers), cfg.layer_windows):
+    aux_sum = torch.zeros((), dtype=F32, device=x.device)
+    windows = _windows(cfg)
+    for p_i, w in zip(_layers(p, len(windows)), windows):
         def block(x, p_i=p_i, w=w):
-            return _dense_block_fwd(p_i, x, positions, w, cfg, axes)[0]
-        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+            return _block(cfg, p_i, x, positions, w, axes)
+        x, aux = checkpoint(block, x, use_reentrant=False) if remat \
+            else block(x)
+        if aux is not None:
+            aux_sum = aux_sum + aux
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=F32, device=x.device)
+    return x, aux_sum
 
 
 def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
@@ -322,17 +426,14 @@ def decode_step(params, cache: KVCache, tokens: torch.Tensor,
     tensors are written in place (each layer's K / V at its slots) and the
     same cache is returned.
     """
-    _require_dense(cfg)
     p = _tree(params)
     x = _embed(p, tokens, cfg)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     positions = pos + torch.arange(tokens.shape[1], dtype=torch.int32,
                                    device=x.device)
-    for i, (p_i, w) in enumerate(zip(_layers(p, cfg.n_layers),
-                                     cfg.layer_windows)):
-        x, _ = _dense_block_fwd(p_i, x, positions, w, cfg, axes,
-                                cache=KVCache(cache.k[i], cache.v[i]),
-                                cache_pos=pos)
+    windows = _windows(cfg)
+    for i, (p_i, w) in enumerate(zip(_layers(p, len(windows)), windows)):
+        x, _ = _block(cfg, p_i, x, positions, w, axes, cache, pos, i)
     if last_only:
         x = x[:, -1:, :]
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)

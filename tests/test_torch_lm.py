@@ -66,6 +66,7 @@ CONFIGS = {
                                 "blockwise", "kv_block": 4, "remat": True},
 }
 DENSE_LMS = ["smollm-135m", "gemma3-4b", "stablelm-12b"]
+MOE_LMS = ["granite-moe-1b-a400m", "llama4-maverick-400b-a17b"]
 
 
 def _cfgs(name, **more):
@@ -338,15 +339,27 @@ def test_prefill_then_decode(name):
 
 
 def test_moe_is_not_ported():
-    cfg = LMConfig(name="moe", **{**BASE, "moe": True, "n_experts": 4,
-                                  "top_k": 1})
-    assert ttr.structure(cfg) == "moe"
-    tok = torch.zeros(1, 4, dtype=torch.int32)
-    for call in (lambda: ttr.init_lm(None, cfg, "meta"),
-                 lambda: ttr.forward({}, tok, cfg),
-                 lambda: ttr.decode_step({}, None, tok, 0, cfg)):
-        with pytest.raises(NotImplementedError, match=r"item 9\(b\)"):
-            call()
+    """The MoE structures, which the port once refused, build on ``meta``
+    with the reference's names, shapes and dtypes: granite-moe-1b's
+    ``moe`` and llama4-maverick's ``dense_moe`` (at full size: 397.7B
+    parameters, none allocated)."""
+    for arch, struct in (("granite-moe-1b-a400m", "moe"),
+                         ("llama4-maverick-400b-a17b", "dense_moe")):
+        tc = tconfigs.get_arch(arch).config
+        assert ttr.structure(tc) == struct
+        want = jax.eval_shape(functools.partial(
+            jtr.init_lm, cfg=jconfigs.get_arch(arch).config),
+            jax.random.key(0))
+        got = ttr.init_lm(None, tc, "meta")
+        assert [(n, tuple(x.shape), str(x.dtype)[6:]) for n, x in
+                flatten_with_names(got)] == [
+            ("/".join(k.key for k in path), tuple(x.shape),
+             np.dtype(x.dtype).name)
+            for path, x in jax.tree_util.tree_flatten_with_path(want)[0]]
+        assert all(x.is_meta for x in leaves(got))
+        pad = (tc.padded_vocab - tc.vocab_size) * tc.d_model * (
+            1 if tc.tie_embeddings else 2)
+        assert sum(x.numel() for x in leaves(got)) == tc.param_count() + pad
 
 
 def test_lm_from_numpy_keeps_names_and_bf16():
@@ -395,7 +408,7 @@ def _j_shapes(tree):
         lambda x: x)
 
 
-@pytest.mark.parametrize("arch", DENSE_LMS)
+@pytest.mark.parametrize("arch", DENSE_LMS + MOE_LMS)
 def test_lm_cells_meta_and_args_at_full_size(arch):
     mesh = jmesh.make_test_mesh((1, 1))
     for cell in jconfigs.get_arch(arch).cells:

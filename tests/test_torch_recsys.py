@@ -540,9 +540,8 @@ def test_recsys_meta_and_args_at_full_size(arch):
             assert _t_shapes(got.args) == _ref_shapes(want.args)
 
 
-@pytest.mark.parametrize("arch, cell", [
-    ("granite-moe-1b-a400m", "train_4k"), ("mace", "molecule"),
-    ("llama4-maverick-400b-a17b", "decode_32k"), ("mace", "full_graph_sm")])
+@pytest.mark.parametrize("arch, cell", [("mace", "molecule"),
+                                        ("mace", "full_graph_sm")])
 def test_build_cell_refuses_what_is_not_ported(arch, cell):
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         tsteps.build_cell(arch, cell, device="cpu")

@@ -618,7 +618,15 @@ def test_launch_train_main_on_the_cpu(arch, tmp_path):
     assert again["step"] == []
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mace"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama4-maverick-400b-a17b"])
+def test_launch_train_trains_the_moe_lms(arch):
+    hist = tlaunch.main(["--arch", arch, "--preset", "smoke", "--steps", "3",
+                         "--device", "cpu"])
+    assert hist["step"] == [0, 1, 2] and np.isfinite(hist["loss"]).all()
+
+
+@pytest.mark.parametrize("arch", ["mace"])
 def test_launch_train_refuses_what_is_not_ported(arch):
     with pytest.raises(SystemExit, match="not ported yet"):
         tlaunch.main(["--arch", arch, "--device", "cpu"])
