@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Seventeen paths, each driven through the entry points a user calls, with every
+Eighteen paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -226,6 +226,33 @@ version may have run):
            ``moe_fwd``; the train cell's losses descending.  Printed as the
            ``lm`` path prints its cells (the decodes' bytes bound counts
            every expert: the dispatch runs each on its cap + 1 slots)
+  gnn      MACE through ``build_cell`` (``models/mace.py``, plain PyTorch on
+           the card as the reference's geometry, tensor products, scatters
+           and readout are plain XLA) at full width (d_hidden 128, l_max
+           2, correlation order 3, 15 paths, n_rbf 8, 2 layers), f32 with
+           TF32 off, on ``Mesh((1, 1))``: ``molecule`` (128 graphs, 3,840
+           nodes / 8,192 edges), ``full_graph_sm`` (2,720 / 10,752, 1,433
+           features, 7 classes), ``minibatch_lg`` at
+           ``graph_edges=11461589`` (the host graph the sampler draws
+           1,024 seeds at fanouts (15, 10) from, cut 10x; the sample padded
+           to 169,984 / 168,960, 602 features, 41 classes), the same with
+           ``ex=bf16``, and ``ogb_products`` at ``nodes=306128`` (1/8 of
+           its nodes, its edges by the same ratio, 30 checkpointed
+           chunks; the earlier paths' tensors wait on the host meanwhile,
+           ``parked_on_host``).
+           Checks: molecule's and full_graph_sm's outputs and gradients
+           against float64 on the CPU (rtol 1e-4 / atol 1e-5; gradients
+           atol 1e-6 x the largest); energies unchanged by a rotation and a
+           translation (rtol 2e-4 / atol 2e-5); 4 edge chunks against 1
+           (1e-5 of the largest); a group-less ``Mesh((4, 1))`` against the
+           local path (rtol 2e-4 / atol 2e-5); a one-rank NCCL group bit
+           for bit the group-less mesh under deterministic algorithms; the
+           losses falling.  Printed: ms a step (median of 10 after 3;
+           ``ogb_products`` 3 after 1), nodes / s and edges / s, peak
+           device memory, the idle share and device events (profiler, 2
+           steps) with the 8 aten ops that take the most device time,
+           ``model_flops`` over the fp32 peak, whether two runs of a step
+           are bit for bit equal (``index_add_``'s atomics)
 
 Phases, each printing one JSON line:
 
@@ -284,6 +311,7 @@ Phases, each printing one JSON line:
            launcher
   lm       the gates' line, one line per LM cell and the kNN-LM
            datastore's line
+  gnn      the gates' line and one line per MACE cell
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -343,6 +371,11 @@ PROBES = (1, 4)
 RTOL, ATOL = 1e-5, 1e-6
 SLAB = 128                  # queries per slab of a plain version's run
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
+# the ogb_products cell's nodes on one card (nodes=N): 1/8 of its 2,449,029,
+# the largest power-of-two share whose step stays under ~70 GB (68.1 GB on
+# an H100 80GB HBM3 with nothing else held; the cell runs with the earlier
+# paths' tensors parked on the host)
+OGB_NODES = 306_128
 # fp32 instruction issues per chi2 term whose row element is not 0: x - y,
 # x + y, + eps, t * t, the IEEE division's fast path (reciprocal, check,
 # five FMAs) and the accumulate, as kernel E's SASS shows
@@ -506,6 +539,43 @@ def time_ms(torch, fn, reps, flush=None, warm=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_storages(torch):
+    """The storage of every CUDA tensor Python can reach, once each."""
+    import gc
+    gc.collect()
+    found = {}
+    for obj in gc.get_objects():
+        try:
+            if not (issubclass(type(obj), torch.Tensor) and obj.is_cuda):
+                continue
+            st = obj.untyped_storage()
+        except (RuntimeError, NotImplementedError):
+            continue                # a tensor without storage (sparse)
+        if st.nbytes() and st.resizable():
+            found.setdefault(st.data_ptr(), st)
+    return list(found.values())
+
+
+@contextlib.contextmanager
+def parked_on_host(torch, storages):
+    """The bytes of ``storages`` wait on the host for the body and come
+    back after it.  Each storage is freed and refilled in place
+    (``resize_``), so every tensor and view of it sees its own bytes again;
+    the body must not read them.  Yields the bytes parked."""
+    torch.cuda.synchronize()
+    host = [st.cpu() for st in storages]
+    for st in storages:
+        st.resize_(0)
+    torch.cuda.empty_cache()
+    try:
+        yield sum(h.nbytes() for h in host)
+    finally:
+        for st, h in zip(storages, host):
+            st.resize_(h.nbytes())
+            st.copy_(h)
+        torch.cuda.synchronize()
 
 
 def node_depths(torch, child_base, max_depth):
@@ -2402,8 +2472,9 @@ def main():
         rt_c.stop()
 
     # the device's idle share while serving batches of 64 at rung 0: the
-    # worker's search alone, and closed loops of 64 requests served
-    def idle_share(fn, n=20):
+    # worker's search alone, and closed loops of 64 requests served;
+    # ``top_ops`` adds the device ms a call of the aten ops that take most
+    def idle_share(fn, n=20, top_ops=0):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -2414,10 +2485,17 @@ def main():
             wall_ms = (time.perf_counter() - t0) * 1e3
         busy = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                 if e.device_type == DeviceType.CUDA]
-        return {"wall_ms_per_batch": wall_ms / n,
-                "device_ms_per_batch": sum(busy) / n,
-                "device_idle_share": 1 - sum(busy) / wall_ms,
-                "device_events_per_batch": len(busy) / n}
+        out = {"wall_ms_per_batch": wall_ms / n,
+               "device_ms_per_batch": sum(busy) / n,
+               "device_idle_share": 1 - sum(busy) / wall_ms,
+               "device_events_per_batch": len(busy) / n}
+        if top_ops:
+            ops = sorted(((a.key, a.self_device_time_total / 1e3 / n)
+                          for a in prof.key_averages()
+                          if a.key.startswith("aten::")),
+                         key=lambda kv: -kv[1])[:top_ops]
+            out["top_aten_ops_device_ms_per_batch"] = dict(ops)
+        return out
 
     def serve_64():
         reqs = [rt0.submit(q) for q in q_np[:serve_batch]]
@@ -4228,6 +4306,273 @@ def main():
         return dict(moe_launches)
 
     launches_by_path["moe"] = moe_path()
+
+    # ---- path: gnn (MACE through build_cell) -------------------------------
+    # models/mace.py at the reference's full width (d_hidden 128, l_max 2,
+    # correlation order 3, 15 paths, n_rbf 8, 2 layers), f32 with TF32 off,
+    # on the default Mesh((1, 1)); plain PyTorch on the card, as the
+    # reference's geometry, tensor products, scatters and readout are plain
+    # XLA with no Pallas kernel.  Gates: the forward outputs and the
+    # gradients of one step of molecule and full_graph_sm against the same
+    # port function in float64 on the CPU (outputs rtol 1e-4 / atol 1e-5,
+    # gradients rtol 1e-4 / atol 1e-6 x the largest); molecule's per-graph
+    # energies unchanged by a seeded rotation and a translation of the
+    # positions (rtol 2e-4 / atol 2e-5, tests/test_property.py's);
+    # full_graph_sm at n_edge_chunks 4 equal to 1 within 1e-5 of each
+    # tensor's largest magnitude, outputs and gradients; mace_fwd on
+    # full_graph_sm's graph sorted for 4 shards on a group-less Mesh((4, 1))
+    # equal to the local path (rtol 2e-4 / atol 2e-5,
+    # tests/test_multidevice.py's); a one-rank NCCL group bit for bit the
+    # group-less mesh under deterministic algorithms, outputs and
+    # gradients; each cell's loss finite and falling on its one batch
+    def gnn_path():
+        import copy
+        import torch.distributed as dist
+        from repro_torch.configs import get_arch
+        from repro_torch.core.sharded_index import Mesh
+        from repro_torch.data.graph_data import sort_edges_for_mesh
+        from repro_torch.launch import steps
+        from repro_torch.models import mace as mace_mod
+        from repro_torch.models.layers import Axes
+        from repro_torch.train.train_state import TrainState, value_and_grad
+        from repro_torch.tree import flatten_with_names, leaves, tree_map
+        earlier = cuda_storages(torch)   # the earlier paths' tensors
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "gnn: fp32 products are not IEEE fp32")
+        arch = get_arch("mace")
+        by_name = {c.name: c for c in arch.cells}
+        gnn_launches = collections.Counter()
+        gen = torch.Generator(device=dev)
+        plain = Mesh((1, 1), device=dev)
+        axes = Axes(("data",), "model", plain)
+        cpu_axes = Axes(("data",), "model", Mesh((1, 1), device="cpu"))
+
+        def setup(cell):
+            cfg, sizes, n_cls, _ = steps.gnn_cell_config(
+                arch.config, by_name[cell], "base", 1)
+            state, batch = steps.build_cell("mace", cell, device=dev
+                                            ).make_args(gen.manual_seed(7))
+            return cfg, sizes, n_cls, state.params, batch
+
+        def fresh(params, dtype=None, device=None):
+            return tree_map(lambda t: t.detach().to(
+                device=device or t.device, dtype=dtype or t.dtype).clone()
+                .requires_grad_(), params)
+
+        def run(params, batch, cfg, sizes, n_cls, ax):
+            """[loss, outputs..., gradients...] of the cell's loss and
+            their names; ``run.n_out`` counts the loss and outputs."""
+            loss, outs, g = value_and_grad(steps.gnn_loss(
+                cfg, sizes, n_cls, ax, outputs=True), fresh(params), batch)
+            named = ([("loss", loss)] + sorted(outs.items())
+                     + flatten_with_names(g))
+            run.n_out = 1 + len(outs)
+            return [t for _, t in named], [n for n, _ in named]
+
+        def err_over_largest(got, want):
+            w = want.double().cpu()
+            return float((got.double().cpu() - w).abs().max()
+                         / w.abs().max().clamp_min(1e-30))
+
+        gate_s, gates = {}, {}
+        # 1. float64 on the CPU
+        t0 = time.perf_counter()
+        for cell in ("molecule", "full_graph_sm"):
+            cfg, sizes, n_cls, params, batch = setup(cell)
+            got, names = run(params, batch, cfg, sizes, n_cls, axes)
+            b64 = {k: (v.double() if v.is_floating_point() else v).cpu()
+                   for k, v in batch.items()}
+            want, _ = run(fresh(params, torch.float64, "cpu"), b64, cfg,
+                          sizes, n_cls, cpu_axes)
+            n_out = run.n_out
+            top = max(float(w.abs().max()) for w in want[n_out:])
+            row = {}
+            for i, (n, x, w) in enumerate(zip(names, got, want)):
+                x = x.double().cpu()
+                ok = (torch.allclose(x, w, rtol=1e-4, atol=1e-5) if i < n_out
+                      else torch.allclose(x, w, rtol=1e-4, atol=1e-6 * top))
+                check(bool(ok), f"gnn {cell} {n} against float64: "
+                                f"{float((x - w).abs().max())}")
+                row[n] = err_over_largest(x, w)
+            gates[f"{cell} vs float64 (max err over largest)"] = {
+                "outputs": {n: row[n] for n in names[:n_out]},
+                "worst_gradient": max(row[n] for n in names[n_out:])}
+        gate_s["float64"] = time.perf_counter() - t0
+
+        # 2. rotation and translation (molecule)
+        t0 = time.perf_counter()
+        cfg, sizes, _, params, batch = setup("molecule")
+        q, r_ = torch.linalg.qr(torch.randn(
+            3, 3, dtype=torch.float64,
+            generator=torch.Generator().manual_seed(11)))
+        rot = q * torch.sign(torch.diagonal(r_))
+        if torch.linalg.det(rot) < 0:
+            rot[:, 0] = -rot[:, 0]
+
+        def energies(pos):
+            with torch.no_grad():
+                return mace_mod.mace_fwd(
+                    params, cfg, batch["species"], pos, batch["senders"],
+                    batch["receivers"], edge_mask=batch["edge_mask"],
+                    graph_ids=batch["graph_ids"], n_graphs=sizes.n_graphs,
+                    axes=axes)["energy"]
+
+        pos = batch["positions"]
+        e0 = energies(pos)
+        moved = {"rotated": (pos.double() @ rot.T.to(dev)).float(),
+                 "translated": pos + torch.tensor([0.7, -1.3, 2.1],
+                                                  device=dev)}
+        for tag, p_ in moved.items():
+            e1 = energies(p_)
+            check(bool(torch.allclose(e1, e0, rtol=2e-4, atol=2e-5)),
+                  f"gnn: energies {tag}: {float((e1 - e0).abs().max())}")
+            gates[f"energy {tag} (max abs err)"] = float(
+                (e1 - e0).abs().max())
+        gates["largest |energy|"] = float(e0.abs().max())
+        gate_s["invariance"] = time.perf_counter() - t0
+
+        # 3. edge chunks (full_graph_sm): 4 against 1
+        t0 = time.perf_counter()
+        cfg, sizes, n_cls, params, batch = setup("full_graph_sm")
+        one, names = run(params, batch, cfg, sizes, n_cls, axes)
+        four, _ = run(params, batch, cfg, sizes._replace(n_edge_chunks=4),
+                      n_cls, axes)
+        errs = [err_over_largest(x, w) for x, w in zip(four, one)]
+        check(max(errs) <= 1e-5, f"gnn: 4 edge chunks against 1: "
+                                 f"{max(zip(errs, names))}")
+        gates["chunks 4 vs 1 (max err over largest)"] = max(errs)
+        gate_s["chunks"] = time.perf_counter() - t0
+
+        # 4. the mesh path on full_graph_sm's graph sorted for 4 shards
+        t0 = time.perf_counter()
+        real = batch["edge_mask"] > 0
+        s4, r4, m4 = (torch.from_numpy(a).to(dev) for a in sort_edges_for_mesh(
+            batch["senders"][real].cpu().numpy(),
+            batch["receivers"][real].cpu().numpy(), sizes.n_nodes, 4))
+        graph = dict(species=batch["species"], positions=batch["positions"],
+                     senders=s4, receivers=r4, edge_mask=m4,
+                     node_feat=batch["node_feat"])
+        with torch.no_grad():
+            local = mace_mod.mace_fwd(params, cfg, **graph)
+            mesh4 = mace_mod.mace_fwd(params, cfg, **graph, axes=Axes(
+                ("data",), "model", Mesh((4, 1), device=dev)))
+        for k in local:
+            check(bool(torch.allclose(mesh4[k], local[k], rtol=2e-4,
+                                      atol=2e-5)),
+                  f"gnn: Mesh((4, 1)) {k} against the local path: "
+                  f"{float((mesh4[k] - local[k]).abs().max())}")
+        gates["mesh (4, 1) vs local (max err over largest)"] = {
+            k: err_over_largest(mesh4[k], local[k]) for k in local}
+        gates["mesh (4, 1) edges"] = int(s4.shape[0])
+
+        # a one-rank NCCL group bit for bit the group-less mesh
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            want, _ = run(params, batch, cfg, sizes, n_cls, axes)
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+            try:
+                group = Axes(("data",), "model", Mesh(
+                    (1, 1), device=dev, group=dist.group.WORLD))
+                (got, _), launches, ref_calls = counted(
+                    torch, counters, lambda: run(params, batch, cfg, sizes,
+                                                 n_cls, group))
+                require(launches, ref_calls, (), "gnn nccl")
+                nccl_backend = dist.get_backend(dist.group.WORLD)
+            finally:
+                dist.destroy_process_group()
+            again, _ = run(params, batch, cfg, sizes, n_cls, axes)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        differ = [n for n, x, y in zip(names, got, want)
+                  if not torch.equal(x, y)]
+        check(not differ, f"gnn: the NCCL group computes otherwise: {differ}")
+        gates["nccl one rank vs group-less"] = "bit for bit"
+        gates["nccl_backend"] = nccl_backend
+        gates["deterministic runs bit for bit"] = all(
+            torch.equal(x, y) for x, y in zip(again, want))
+        gate_s["mesh"] = time.perf_counter() - t0
+        emit({"phase": "gnn", "card": smi, "gate_seconds": gate_s,
+              "gates": gates})
+        del params, batch, local, mesh4, graph, one, four, got, want, again
+        torch.cuda.empty_cache()
+
+        # 5. the cells: (cell, variant, timed runs, warm-up runs)
+        cells = (("molecule", "base", 10, 3),
+                 ("full_graph_sm", "base", 10, 3),
+                 ("minibatch_lg", "graph_edges=11461589", 10, 3),
+                 ("minibatch_lg", "graph_edges=11461589,ex=bf16", 10, 3),
+                 ("ogb_products", f"nodes={OGB_NODES}", 3, 1))
+
+        def gnn_cell(cell, variant, reps, warm, parked):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            prog = steps.build_cell("mace", cell, variant=variant, device=dev)
+            t0 = time.perf_counter()
+            state, batch = prog.make_args(gen.manual_seed(0))
+            torch.cuda.synchronize()
+            args_s = time.perf_counter() - t0
+            start = TrainState(state.step.clone(), copy.deepcopy(
+                state.params), tree_map(torch.clone, state.opt_state), None)
+            cur, losses = [state], []
+
+            def call():
+                cur[0], m = prog.fn(cur[0], batch)
+                losses.append(m["loss"])
+
+            def drive():
+                ms_ = time_ms(torch, call, reps, warm=warm)
+                return ms_, idle_share(call, 2, top_ops=8)
+
+            (ms, idle), launches, ref_calls = counted(torch, counters, drive)
+            require(launches, ref_calls, (), f"gnn {cell} {variant}")
+            gnn_launches.update(launches)
+            peak = torch.cuda.max_memory_allocated()
+            ls = [float(x) for x in losses]
+            check(all(math.isfinite(x) for x in ls)
+                  and statistics.mean(ls[-3:]) < ls[0],
+                  f"gnn {cell} {variant}: losses {ls}")
+            del cur[0], state
+
+            def one_step(st):
+                st = TrainState(st.step.clone(), copy.deepcopy(st.params),
+                                tree_map(torch.clone, st.opt_state), None)
+                prog.fn(st, batch)
+                return st
+
+            a_, b_ = one_step(start), one_step(start)
+            differ = [n for (n, x), y in zip(flatten_with_names(a_),
+                                             leaves(b_))
+                      if not torch.equal(x, y)]
+            meta = prog.meta
+            emit({"phase": "gnn", "card": smi, "arch": "mace", "cell": cell,
+                  "variant": variant, "n_layers": arch.config.n_layers,
+                  "nodes": meta["n_nodes"], "edges": meta["n_edges"],
+                  "params": meta["params_total"], "ms": ms,
+                  "nodes_per_s": meta["n_nodes"] / ms * 1e3,
+                  "edges_per_s": meta["n_edges"] / ms * 1e3,
+                  "model_flops": meta["model_flops"],
+                  "flops_share_of_fp32_peak":
+                      meta["model_flops"] / (ms / 1e3) / FP32_FLOPS,
+                  "peak_gb": peak / 1e9, "held_before_gb": held / 1e9,
+                  "parked_on_host_gb": parked / 1e9,
+                  "make_args_s": args_s, **idle, "losses": ls,
+                  "two_runs_bit_for_bit": not differ,
+                  "leaves_that_differ": differ})
+            del prog, batch, start, a_, b_
+
+        for cell, variant, reps, warm in cells:
+            # ogb_products at 1/8 peaks near 68 GB: the ~8 GB the earlier
+            # paths hold wait on the host meanwhile
+            with parked_on_host(torch, earlier if cell == "ogb_products"
+                                else []) as parked:
+                gnn_cell(cell, variant, reps, warm, parked)
+        torch.cuda.empty_cache()
+        return dict(gnn_launches)
+
+    launches_by_path["gnn"] = gnn_path()
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

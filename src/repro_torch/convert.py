@@ -15,6 +15,8 @@ manifest instead (``index.load_index``).
 for example ``jax.device_get(init_mind(key, cfg))`` -- and returns the
 port's module with the same weights; ``lm_from_numpy`` does the same for
 a dense language model's ``init_lm`` tree (bfloat16 leaves included).
+``mace_from_numpy`` takes MACE's ``init_mace`` tree so and returns the
+port's tree of tensors that require gradients, by name and unchanged.
 ``train_state_from_numpy`` takes a whole ``TrainState`` so --
 ``jax.device_get(state)`` -- and returns the port's, its optimizer state an
 ``AdamState``, a ``FactorState`` or SGDM's momentum tree, so that both
@@ -136,6 +138,16 @@ def lm_from_numpy(tree: Mapping[str, Any], cfg: LMConfig,
     ``device="cpu"``); leaves keep their dtypes, bfloat16 included."""
     dev = resolve_device(device)
     return tr.LM(cfg, tree_map(lambda a: _tensor(a, dev), dict(tree)))
+
+
+def mace_from_numpy(tree: Mapping[str, Any],
+                    device: str | torch.device | None = None) -> dict:
+    """The port's MACE parameters (``models/mace.init_mace``'s tree) from a
+    reference ``init_mace`` tree of numpy arrays, on ``device`` (the GPU
+    unless ``device="cpu"``): each leaf by name, its values and dtype
+    unchanged, requiring gradients."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev).requires_grad_(), dict(tree))
 
 
 def train_state_from_numpy(state, cfg=None,

@@ -1,9 +1,9 @@
-"""Cell programs (port of the LM and recsys parts of
-``repro/launch/steps.py``): (arch x shape-cell x mesh) -> a step function,
-its arguments' shapes, and a way to make them.
+"""Cell programs (port of ``repro/launch/steps.py``): (arch x shape-cell x
+mesh) -> a step function, its arguments' shapes, and a way to make them.
 
-For every LM train, prefill and decode cell (dense and MoE) and every
-recsys train, serve and retrieval cell this builds a ``CellProgram``:
+For every LM train, prefill and decode cell (dense and MoE), every recsys
+train, serve and retrieval cell and every MACE train cell this builds a
+``CellProgram``:
   * ``fn``, the step: serve and retrieval run under ``torch.no_grad``;
     train (``fn(state, batch) -> (state, {"loss"})``) takes one AdamW
     step (``adamw(constant_schedule(1e-3))``) on the reference's BCE with
@@ -37,12 +37,20 @@ last slot, so a step reads the whole cache.  The MoE configurations
 (granite-moe-1b, llama4-maverick-400b) build the same programs; with no
 mesh passed to the model their MoE layers run the local ``moe_fwd``.
 
+The MACE cells (``models/mace``) take one step of AdamW at
+``constant_schedule(1e-3)`` on the node CE over labels >= 0 or the energy
+MSE, at the reference's padded sizes (``_gnn_sizes``: ``n_nodes``,
+``n_edges``, ``n_edge_chunks``), on a batch from ``gnn_batch``:
+``batched_molecules``, ``random_graph`` or a ``NeighborSampler`` sample,
+its edges sorted by receiver shard and padded per shard with masked
+self-loops.
+
 The reference's ``in_shardings`` place the inputs over a TPU mesh; one
 process has no counterpart.  The mesh is the port's logical
-``core.sharded_index.Mesh`` (``Mesh((1, 1))`` on the device by default),
-and only the ``rpf=1`` retrieval runs cells on it.  The ``gnn`` family is
-not ported yet (ROADMAP.md queue 1 item 9): ``build_cell`` raises
-``NotImplementedError`` for it.
+``core.sharded_index.Mesh`` (``Mesh((1, 1))`` on the device by default);
+the ``rpf=1`` retrieval runs cells on it, and the MACE cells' message
+passing runs ``mace_fwd``'s mesh path over its dp axes, as the
+reference's ``_gnn_program`` always passes its mesh.
 
 ``variant`` is "base" or comma-separated keys.  LM cells take the
 reference's keys (``_apply_lm_variant``: ``nl=N`` cuts the depth,
@@ -51,8 +59,12 @@ reference's keys (``_apply_lm_variant``: ``nl=N`` cuts the depth,
 cells: ``rpf=1`` serves MIND's ``retrieval_cand`` through the paper's index
 (the reference's); for one card, ``rows=N`` caps every table at N rows
 (DLRM-MLPerf's 187.8M rows are 96 GB of f32) and ``cand=N`` scores N
-candidates in a CTR model's retrieval instead of 1,048,576.  An unknown
-key raises.
+candidates in a CTR model's retrieval instead of 1,048,576.  MACE cells:
+the reference's ``ex=bf16|f32`` and ``unroll=1``; for one card,
+``nodes=N`` (``ogb_products``: N nodes, the edges by the same ratio)
+and ``graph_edges=N`` (``minibatch_lg``: the host graph the sampler draws
+from holds N edges; the sample's padded shapes are the reference's).  An
+unknown key raises.
 """
 from __future__ import annotations
 
@@ -63,19 +75,24 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import (ArchSpec, LMConfig, RecsysConfig,
-                                      ShapeCell)
+from repro_torch.configs.base import (ArchSpec, LMConfig, MACEConfig,
+                                      RecsysConfig, ShapeCell)
+from repro_torch.configs.mace_arch import N_CLASSES
 from repro_torch.core.forest import Forest, ForestConfig
 from repro_torch.core.sharded_index import (CellDraws, Mesh, ShardedForest,
                                             build_sharded_index,
                                             make_query_fn, merge_topk_pairs)
+from repro_torch.data.graph_data import (NeighborSampler, batched_molecules,
+                                         random_graph, sort_edges_for_mesh,
+                                         to_csr)
 from repro_torch.data.lm_data import MarkovTokens
 from repro_torch.data.recsys_data import BehaviorStream, CTRStream
 from repro_torch.kernels.common import topk_smallest
 from repro_torch.launch.mesh import dp_axes
+from repro_torch.models import mace as mace_mod
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tr
-from repro_torch.models.layers import Axes
+from repro_torch.models.layers import Axes, upcast
 from repro_torch.train.optimizer import (AdamState, adafactor, adamw,
                                          constant_schedule)
 from repro_torch.train.train_state import (TrainState, init_train_state,
@@ -90,8 +107,6 @@ N_CAND = 1_048_576
 MIND_FOREST = ForestConfig(n_trees=80, capacity=16, split_ratio=0.3)
 # the largest MIND batch drawn from BehaviorStream
 STREAM_MAX_BATCH = 65_536
-NOT_PORTED = ("not ported yet (ROADMAP.md queue 1 item 9: the seed's "
-              "non-ANN code)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,6 +338,240 @@ def _lm_batch_variant(variant: str) -> tuple[str, Optional[int]]:
         else:
             keep.append(item)
     return ",".join(keep) or "base", batch
+
+
+# ===========================================================================
+# GNN (MACE) cells
+# ===========================================================================
+
+
+class GraphSizes(NamedTuple):
+    """A gnn cell's shapes: the reference's padded ``n_nodes`` /
+    ``n_edges`` and ``n_edge_chunks``, and the graph they hold."""
+
+    n_nodes: int
+    n_edges: int
+    n_edge_chunks: int
+    n_graphs: int
+    d_feat: int
+    raw_nodes: int      # the generated graph's nodes (the sample's at most)
+    raw_edges: int
+
+
+def _gnn_sizes(cell: ShapeCell, dpn: int,
+               nodes: Optional[int] = None) -> GraphSizes:
+    """The reference's sizes (``_gnn_program``); ``nodes=N`` cuts
+    ``ogb_products`` to N nodes and its edges by the same ratio."""
+    if cell.name == "molecule":
+        raw_nodes = n_nodes = cell.n_nodes * cell.n_graphs        # 3840
+        raw_edges = cell.n_edges * cell.n_graphs                  # 8192
+        n_graphs, d_feat = cell.n_graphs, 0
+    elif cell.name == "minibatch_lg":
+        # padded fanout-sample sizes: seeds + seeds*15 + seeds*150
+        raw_nodes = cell.batch_nodes * (1 + 15 + 150)
+        n_nodes = _pad_to(raw_nodes, 32)
+        raw_edges = cell.batch_nodes * (15 + 150)
+        n_graphs, d_feat = 1, cell.d_feat
+    else:
+        raw_nodes = nodes or cell.n_nodes
+        n_nodes = _pad_to(raw_nodes, 32)
+        raw_edges = (cell.n_edges if nodes is None
+                     else cell.n_edges * nodes // cell.n_nodes)
+        n_graphs, d_feat = 1, cell.d_feat
+    # stream big edge sets in rematerialized chunks (<= ~512k edges/device
+    # live at once); pad the edge count so chunks shard evenly
+    n_edge_chunks = max(1, -(-raw_edges // (262144 * dpn)))
+    n_edges = _pad_to(raw_edges, n_edge_chunks * 512)
+    return GraphSizes(n_nodes, n_edges, n_edge_chunks, n_graphs, d_feat,
+                      raw_nodes, raw_edges)
+
+
+def _gnn_variant(cfg: MACEConfig, cell: ShapeCell, variant: str
+                 ) -> tuple[MACEConfig, Optional[int], Optional[int]]:
+    """(config, nodes, graph_edges) of a gnn ``variant``: the reference's
+    ``ex=bf16|f32`` and ``unroll=1``, and for one card ``nodes=N``
+    (``ogb_products`` cut to N nodes) and ``graph_edges=N``
+    (``minibatch_lg``'s host graph cut to N edges)."""
+    nodes = graph_edges = None
+    for item in (variant.split(",") if variant != "base" else []):
+        k, _, v = item.partition("=")
+        if k == "ex":
+            cfg = dataclasses.replace(
+                cfg, exchange_dtype={"bf16": "bfloat16",
+                                     "f32": "float32"}[v])
+        elif k == "nodes" and cell.name == "ogb_products":
+            nodes = int(v)
+        elif k == "graph_edges" and cell.name == "minibatch_lg":
+            graph_edges = int(v)
+        elif k != "unroll":
+            raise ValueError(f"unknown gnn variant key {k} for {cell.name}")
+    return cfg, nodes, graph_edges
+
+
+def gnn_batch(cell: ShapeCell, sizes: GraphSizes, cfg: MACEConfig,
+              n_classes: int, seed: int, dpn: int,
+              graph_edges: Optional[int] = None) -> dict:
+    """The cell's batch as numpy arrays, every stream seeded from ``seed``.
+
+    ``molecule``: ``batched_molecules`` and N(0, 1) energies.  The full
+    graphs: ``random_graph`` at the cell's nodes and edges, labels uniform
+    over its classes.  ``minibatch_lg``: a ``NeighborSampler`` sample of
+    ``batch_nodes`` seeds at the cell's fanouts over the host graph
+    (``graph_edges`` edges, the cell's by default), its node rows gathered
+    by ``node_ids``, labels on its seeds and -1 elsewhere.  Species modulo
+    ``n_species``; padded nodes species 0, position 0, features 0, label
+    -1.  The edges sorted by receiver shard over ``dpn`` dp shards
+    (``sort_edges_for_mesh``), each shard's block padded to ``n_edges /
+    dpn`` with masked self-loops on its first node."""
+    rng = np.random.default_rng([seed, 1])
+    out = {}
+    if cell.name == "molecule":
+        g = batched_molecules(cell.n_graphs, cell.n_nodes, cell.n_edges,
+                              seed=seed)
+        out["graph_ids"] = g["graph_ids"]
+        out["energy"] = rng.normal(size=cell.n_graphs).astype(np.float32)
+    elif cell.name == "minibatch_lg":
+        host = random_graph(cell.n_nodes, graph_edges or cell.n_edges,
+                            cell.d_feat, seed=seed)
+        indptr, indices = to_csr(host["senders"], host["receivers"],
+                                 cell.n_nodes)
+        seeds = rng.choice(cell.n_nodes, cell.batch_nodes, replace=False)
+        smp = NeighborSampler(indptr, indices, seed=seed).sample(
+            seeds, cell.fanout)
+        ids = smp["node_ids"]
+        g = {"senders": smp["senders"], "receivers": smp["receivers"],
+             **{k: host[k][ids] for k in ("positions", "species",
+                                          "node_feat")}}
+        labels = np.full(len(ids), -1, np.int32)
+        labels[smp["seed_local"]] = rng.integers(0, n_classes, len(seeds))
+    else:
+        g = random_graph(sizes.raw_nodes, sizes.raw_edges, sizes.d_feat,
+                         seed=seed)
+        labels = rng.integers(0, n_classes, sizes.raw_nodes).astype(np.int32)
+    n_real = len(g["species"])
+    pad = sizes.n_nodes - n_real
+    if pad < 0 or (pad and "graph_ids" in out):
+        raise ValueError(f"{n_real} nodes do not pad to {sizes.n_nodes}")
+
+    def padded(a, fill=0):
+        return np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1),
+                      constant_values=fill)
+
+    out["species"] = padded(g["species"] % cfg.n_species).astype(np.int32)
+    out["positions"] = padded(g["positions"]).astype(np.float32)
+    if sizes.d_feat:
+        out["node_feat"] = padded(g["node_feat"]).astype(np.float32)
+    if n_classes:
+        out["labels"] = padded(labels, -1).astype(np.int32)
+    s, r, mask = sort_edges_for_mesh(g["senders"], g["receivers"],
+                                     sizes.n_nodes, dpn)
+    per, have = sizes.n_edges // dpn, len(s) // dpn
+    if have > per:
+        raise ValueError(f"a dp shard holds {have} edges, more than the "
+                         f"cell's {per}")
+    first = (np.arange(dpn) * (sizes.n_nodes // dpn))[:, None]
+    for name, a, fill in (("senders", s, first), ("receivers", r, first),
+                          ("edge_mask", mask, 0)):
+        block = np.broadcast_to(np.asarray(fill, a.dtype), (dpn, per)).copy()
+        block[:, :have] = a.reshape(dpn, have)
+        out[name] = block.reshape(-1)
+    return out
+
+
+def gnn_loss(cfg: MACEConfig, sizes: GraphSizes, n_classes: int,
+             axes: Optional[Axes], unroll: bool = False,
+             outputs: bool = False) -> Callable:
+    """``loss_fn(params, batch) -> (loss, {})``: the node CE over labels
+    >= 0 (a cell with classes) or the energy MSE, as the reference's;
+    ``outputs`` puts ``mace_fwd``'s outputs, detached, in the dict."""
+    def loss_fn(p, batch):
+        out = mace_mod.mace_fwd(
+            p, cfg, batch["species"], batch["positions"], batch["senders"],
+            batch["receivers"], node_feat=batch.get("node_feat"),
+            edge_mask=batch["edge_mask"], graph_ids=batch.get("graph_ids"),
+            n_graphs=sizes.n_graphs, axes=axes,
+            n_edge_chunks=sizes.n_edge_chunks, unroll=unroll)
+        if n_classes:
+            logits = upcast(out["node_logits"])
+            lab = batch["labels"]
+            valid = lab >= 0
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.take_along_dim(
+                logits, torch.clamp(lab, min=0).long()[:, None], dim=-1)[:, 0]
+            loss = torch.sum((lse - ll) * valid) / torch.clamp(
+                torch.sum(valid), min=1)
+        else:
+            loss = torch.mean((out["energy"] - batch["energy"]) ** 2)
+        return loss, ({k: v.detach() for k, v in out.items()} if outputs
+                      else {})
+    return loss_fn
+
+
+def gnn_cell_config(cfg: MACEConfig, cell: ShapeCell, variant: str,
+                    dpn: int
+                    ) -> tuple[MACEConfig, GraphSizes, int, Optional[int]]:
+    """(config, sizes, classes, host graph edges) of the program of the
+    gnn cell ``cell`` of ``cfg`` over ``dpn`` dp shards."""
+    cfg, nodes, graph_edges = _gnn_variant(cfg, cell, variant)
+    sizes = _gnn_sizes(cell, dpn, nodes)
+    cfg = dataclasses.replace(cfg, d_feat_in=sizes.d_feat)
+    return cfg, sizes, N_CLASSES.get(cell.name, 0), graph_edges
+
+
+def _gnn_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
+                 multi_pod: bool, variant: str = "base") -> CellProgram:
+    dp = dp_axes(multi_pod)
+    dpn = _dp_size(mesh, dp)
+    cfg, sizes, n_classes, graph_edges = gnn_cell_config(
+        spec.config, cell, variant, dpn)
+    opt = adamw(constant_schedule(1e-3))
+    params_sds = _sds(mace_mod.init_mace(None, cfg, n_classes, "meta"))
+    step_sds = ShapeDtype((), torch.int32)
+    state_sds = TrainState(step_sds, params_sds,
+                           AdamState(step_sds, params_sds, params_sds), None)
+    n, e = sizes.n_nodes, sizes.n_edges
+    batch_sds = {
+        "species": ShapeDtype((n,), torch.int32),
+        "positions": ShapeDtype((n, 3), torch.float32),
+        "senders": ShapeDtype((e,), torch.int32),
+        "receivers": ShapeDtype((e,), torch.int32),
+        "edge_mask": ShapeDtype((e,), torch.float32),
+    }
+    if sizes.d_feat:
+        batch_sds["node_feat"] = ShapeDtype((n, sizes.d_feat), torch.float32)
+    if n_classes:
+        batch_sds["labels"] = ShapeDtype((n,), torch.int32)
+    else:
+        batch_sds["graph_ids"] = ShapeDtype((n,), torch.int32)
+        batch_sds["energy"] = ShapeDtype((sizes.n_graphs,), torch.float32)
+    axes = Axes(dp=dp, tp="model", mesh=mesh)
+
+    def make_args(generator: torch.Generator):
+        params = mace_mod.init_mace(generator, cfg, n_classes, mesh.device)
+        batch = gnn_batch(cell, sizes, cfg, n_classes,
+                          generator.initial_seed(), dpn, graph_edges)
+        return (init_train_state(params, opt),
+                {k: torch.from_numpy(v).to(mesh.device)
+                 for k, v in batch.items()})
+
+    # model flops: per-edge tensor-product work dominates
+    paths = 15
+    c = cfg.d_hidden
+    per_edge = cfg.n_layers * (2 * paths * c * 27 + 2 * cfg.n_rbf * 64
+                               + 2 * 64 * paths * c)
+    per_node = cfg.n_layers * (2 * paths * c * 81 * 2) + 2 * c * c
+    n_params = int(sum(np.prod(x.shape) for x in leaves(params_sds)))
+    meta = {
+        "model_flops": 3 * (e * per_edge + n * per_node),
+        "n_nodes": n, "n_edges": e, "kind": "train",
+        "params_total": n_params, "params_active": n_params,
+        "n_tokens": n,
+    }
+    # gnn_loss's metrics are empty: a step returns {"loss"}
+    step = make_train_step(gnn_loss(cfg, sizes, n_classes, axes,
+                                    "unroll=1" in variant), opt)
+    return CellProgram(fn=step, args=(state_sds, batch_sds), meta=meta,
+                       make_args=make_args)
 
 
 # ===========================================================================
@@ -688,14 +937,12 @@ def build_cell(arch_id: str, cell_name: str, mesh: Optional[Mesh] = None,
     if cell.skip:
         raise ValueError(f"cell {arch_id}/{cell_name} is skipped: "
                          f"{cell.skip_reason}")
-    if spec.family == "gnn":
-        raise NotImplementedError(
-            f"{arch_id}/{cell_name}: the {spec.family} {cell.kind} program "
-            f"is {NOT_PORTED}")
     if mesh is None:
         shape, axes = (((1, 1, 1), ("pod", "data", "model")) if multi_pod
                        else ((1, 1), ("data", "model")))
         mesh = Mesh(shape, axes, device=device)
+    if spec.family == "gnn":
+        return _gnn_program(spec, cell, mesh, multi_pod, variant)
     if spec.family == "lm":
         rest, batch = _lm_batch_variant(variant)
         cfg = _apply_lm_variant(spec.config, rest)

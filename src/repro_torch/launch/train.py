@@ -16,8 +16,11 @@ watchdog.  The language models (``smollm-135m``, ``gemma3-4b``,
 aux term included) on ``MarkovTokens(vocab, seed=0)`` batches of
 ``--batch`` x ``--seq``; the recommenders (``mind``, ``dlrm-mlperf``,
 ``autoint``, ``wide-deep``) the reference's BCE, ignoring ``--seq`` as
-the reference does.  The ``gnn`` family exits with "not ported yet"
-(ROADMAP.md queue 1 item 9).  ``main(argv)`` returns the loop's history.
+the reference does; ``mace`` (``d_hidden`` 32 under ``--preset smoke``)
+the energy MSE of ``models/mace.mace_fwd`` on the local path over
+``batched_molecules(--batch, 12, 32, seed=0)`` with the target
+``sin(arange(batch))``, as the reference's.  ``main(argv)`` returns the
+loop's history.
 """
 from __future__ import annotations
 
@@ -26,14 +29,17 @@ import dataclasses
 import os
 import tempfile
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.data.graph_data import batched_molecules
 from repro_torch.data.lm_data import MarkovTokens
 from repro_torch.data.recsys_data import BehaviorStream, CTRStream
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import NOT_PORTED, recsys_loss
+from repro_torch.launch.steps import recsys_loss
+from repro_torch.models import mace as mace_mod
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tr
 from repro_torch.train.optimizer import adamw, cosine_schedule
@@ -78,9 +84,6 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
 
     spec = get_arch(args.arch)
-    if spec.family == "gnn":
-        raise SystemExit(f"[train] {args.arch}: the {spec.family} train "
-                         f"program is {NOT_PORTED}")
     dev = resolve_device(None if args.device == "cuda" else args.device)
     # fp32 products are IEEE fp32, as the reference's
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -103,6 +106,27 @@ def main(argv: list[str] | None = None) -> dict:
         def batches():
             for b in data.batches(args.batch, args.seq):
                 yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    elif spec.family == "gnn":
+        cfg = spec.config if args.preset == "full" else dataclasses.replace(
+            spec.config, d_hidden=32)
+        model = mace_mod.init_mace(generator, cfg, device=dev)
+        mol = batched_molecules(args.batch, 12, 32, seed=0)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in mol.items()
+                 if k != "n_graphs"}
+        # synthetic energies
+        batch["energy"] = torch.from_numpy(np.asarray(
+            np.sin(np.arange(args.batch)), np.float32)).to(dev)
+
+        def loss_fn(p_, b_):
+            out = mace_mod.mace_fwd(p_, cfg, b_["species"], b_["positions"],
+                                    b_["senders"], b_["receivers"],
+                                    graph_ids=b_["graph_ids"],
+                                    n_graphs=args.batch)
+            return torch.mean((out["energy"] - b_["energy"]) ** 2), {}
+
+        def batches():
+            while True:
+                yield batch
     else:
         cfg = smoke_recsys(spec.config) if args.preset == "smoke" \
             else spec.config

@@ -28,7 +28,9 @@ outside its dp row or tp column is empty or zero): the psum an
 gradients of the cells' replicated inputs are summed over the group in
 the backward, as the reference's replicated inputs are.  Each collective
 is a ``torch.autograd.Function`` whose backward is its transpose: the
-psum's passes each cell's partial the cotangent unchanged.
+psum's passes each cell's partial the cotangent unchanged.  The grid, the
+gathers and the sums are ``models/collectives.py``'s, shared with MACE;
+the all-to-all is this module's.
 
 ``make_quantized_all_gather`` is the reference's ``custom_vjp``: an int8
 gather of the weights with per-(expert, column) scales, whose backward is
@@ -37,13 +39,14 @@ the straight-through transpose (a reduce-scatter of the cotangent).
 from __future__ import annotations
 
 import math
-from typing import Sequence
 
-import numpy as np
 import torch
 from torch.nn import functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.models.collectives import (AllGather, Grid, Sum, SumGrads,
+                                            dequantize, everyone,
+                                            peer_cells, quantize)
 from repro_torch.models.layers import Axes, normal, upcast
 
 
@@ -206,125 +209,8 @@ def moe_fwd(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
 
 
 # ---------------------------------------------------------------------------
-# the mesh's cells and their collectives
+# the mesh's all-to-all
 # ---------------------------------------------------------------------------
-
-
-class _Grid:
-    """The (dp, tp) layout of ``mesh``: ``local`` lists the cells this
-    process holds (every cell, or with a group this rank's one) as (dp
-    index, the ``dp`` axes raveled in their order; tp index)."""
-
-    def __init__(self, mesh, dp: Sequence[str], tp: str):
-        dp = tuple(dp)
-        if sorted(dp + (tp,)) != sorted(mesh.axis_names):
-            raise ValueError(f"dp axes {dp} + tp axis {tp!r} must name each "
-                             f"axis of mesh {mesh.axis_names} once")
-        if mesh.group is not None and mesh.world != mesh.n_cells:
-            raise ValueError(
-                f"the MoE layer takes one rank a cell: {mesh.world} ranks "
-                f"for the {mesh.n_cells} cells of mesh "
-                f"{tuple(mesh.shape.values())}")
-        self.mesh, self.group, self.dp, self.tp = mesh, mesh.group, dp, tp
-        self.dp_n = math.prod(mesh.shape[a] for a in dp)
-        self.tp_n = mesh.shape[tp]
-        sizes = [mesh.shape[a] for a in mesh.axis_names]
-        self.local = []
-        for flat in mesh.local_cells():
-            c = dict(zip(mesh.axis_names, np.unravel_index(flat, sizes)))
-            di = int(np.ravel_multi_index([c[a] for a in dp],
-                                          [mesh.shape[a] for a in dp])) \
-                if dp else 0
-            self.local.append((di, int(c[tp])))
-
-
-def _peers(mesh, cell: int, axes: tuple[str, ...]) -> list[int]:
-    """Flat cells that share ``cell``'s coordinates off ``axes``, raveled
-    over ``axes`` in their order."""
-    sizes = [mesh.shape[a] for a in mesh.axis_names]
-    mine = dict(zip(mesh.axis_names, np.unravel_index(cell, sizes)))
-    out = []
-    for idx in np.ndindex(*[mesh.shape[a] for a in axes]):
-        c = dict(mine, **dict(zip(axes, idx)))
-        out.append(int(np.ravel_multi_index([c[a] for a in mesh.axis_names],
-                                            sizes)))
-    return out
-
-
-class _AllReduce(torch.autograd.Function):
-    """Forward: the sum over the mesh's group.  Backward: the cotangent
-    unchanged, since every rank holds the same loss of the sum."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        import torch.distributed as dist
-        out = t.contiguous().clone()
-        dist.all_reduce(out, group=mesh.group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _SumGrads(torch.autograd.Function):
-    """Forward: the identity.  Backward: the cotangent summed over the
-    mesh's group, the gradient of an input every rank holds a copy of."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.mesh.group)
-        return g, None
-
-
-def _gather_over_group(t: torch.Tensor, mesh) -> torch.Tensor:
-    """(world, *t.shape): every rank's ``t``, in rank order."""
-    import torch.distributed as dist
-    t = t.contiguous()
-    out = t.new_empty((mesh.world * t.shape[0],) + tuple(t.shape[1:]))
-    dist.all_gather_into_tensor(out, t, group=mesh.group)
-    return out.view((mesh.world,) + tuple(t.shape))
-
-
-class _AllGather(torch.autograd.Function):
-    """The shards of ranks ``peers`` concatenated along ``dim`` (forward:
-    ``all_gather_into_tensor``) and the reduce-scatter of the cotangent
-    (backward: this rank's slice summed over ``peers``).  Under ``quant``
-    each shard travels as int8 with its per-column scales and is
-    dequantized after the gather; the backward goes straight through the
-    quantization."""
-
-    @staticmethod
-    def forward(ctx, shard, mesh, peers, dim, quant):
-        ctx.mesh, ctx.peers, ctx.dim = mesh, peers, dim
-        if quant:
-            q, scale = _quantize(shard, dim)
-            qs = _gather_over_group(q, mesh)
-            ss = _gather_over_group(scale, mesh)
-            parts = [_dequantize(qs[r], ss[r], shard.dtype) for r in peers]
-        else:
-            every = _gather_over_group(shard, mesh)
-            parts = [every[r] for r in peers]
-        return torch.cat(parts, dim=dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-        mesh, peers = ctx.mesh, ctx.peers
-        parts = torch.chunk(g, len(peers), dim=ctx.dim)
-        zero = torch.zeros_like(parts[0])
-        send = torch.cat([parts[peers.index(r)] if r in peers else zero
-                          for r in range(mesh.world)]).contiguous()
-        out = torch.empty_like(zero)
-        dist.reduce_scatter_tensor(out, send, group=mesh.group)
-        return out, None, None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -355,20 +241,6 @@ def _exchange(t: torch.Tensor, mesh, peers: list[int]) -> torch.Tensor:
     return out.reshape(t.shape)
 
 
-def _quantize(w: torch.Tensor, axis: int):
-    """int8 of ``w`` and its scales max|w| / 127 + 1e-12 over ``axis``
-    (one per (expert, column))."""
-    scale = torch.amax(torch.abs(w), dim=axis, keepdim=True) / 127.0
-    scale = scale + 1e-12
-    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-    return q, scale
-
-
-def _dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
-                ) -> torch.Tensor:
-    return q.to(dtype) * scale.to(dtype)
-
-
 class _QuantizedConcat(torch.autograd.Function):
     """The group-less quantized gather: each shard quantized on its own,
     dequantized and concatenated along ``axis``; the backward hands each
@@ -377,7 +249,7 @@ class _QuantizedConcat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, axis, *shards):
         ctx.axis, ctx.sizes = axis, [s.shape[axis] for s in shards]
-        return torch.cat([_dequantize(*_quantize(s, axis), s.dtype)
+        return torch.cat([dequantize(*quantize(s, axis), s.dtype)
                           for s in shards], dim=axis)
 
     @staticmethod
@@ -402,14 +274,14 @@ def make_quantized_all_gather(axis_names, axis: int, mesh=None):
         def qag(shards):
             return _QuantizedConcat.apply(axis, *shards)
         return qag
-    peers = _peers(mesh, mesh.rank, tuple(axis_names))
+    peers = peer_cells(mesh, mesh.rank, tuple(axis_names))
 
     def qag_group(w_loc):
-        return _AllGather.apply(w_loc, mesh, peers, axis, True)
+        return AllGather.apply(w_loc, mesh, peers, axis, True)
     return qag_group
 
 
-def _expert_weights(grid: _Grid, w: torch.Tensor, di: int, ti: int,
+def _expert_weights(grid: Grid, w: torch.Tensor, di: int, ti: int,
                     e_local: int, fsdp: bool, quant: bool) -> torch.Tensor:
     """Cell (di, ti)'s experts of ``w`` (E, d_in, d_out): the tp shard of
     E / tp experts, under ``fsdp`` gathered over dp from each dp cell's
@@ -426,28 +298,30 @@ def _expert_weights(grid: _Grid, w: torch.Tensor, di: int, ti: int,
     shard = block[:, di * rows:(di + 1) * rows]
     if quant:
         return make_quantized_all_gather(grid.dp, 1, grid.mesh)(shard)
-    return _AllGather.apply(shard, grid.mesh,
-                            _peers(grid.mesh, grid.mesh.rank, grid.dp), 1,
-                            False)
+    return AllGather.apply(shard, grid.mesh,
+                           peer_cells(grid.mesh, grid.mesh.rank, grid.dp), 1,
+                           False)
 
 
-def _replicated(grid: _Grid, *tensors):
+def _replicated(grid: Grid, *tensors):
     """With a group, the cells' copies of inputs every rank holds: their
     gradients are summed over the group in the backward."""
     if grid.group is None:
         return tensors
-    return tuple(_SumGrads.apply(t, grid.mesh) for t in tensors)
+    return tuple(SumGrads.apply(t, grid.mesh, everyone(grid.mesh))
+                 for t in tensors)
 
 
-def _mean_aux(grid: _Grid, auxes: list[torch.Tensor]) -> torch.Tensor:
+def _mean_aux(grid: Grid, auxes: list[torch.Tensor]) -> torch.Tensor:
     """The mean over every cell of the mesh of each cell's aux."""
     if grid.group is None:
         return torch.mean(torch.stack(auxes))
-    return _AllReduce.apply(torch.stack(auxes).sum(), grid.mesh) \
+    return Sum.apply(torch.stack(auxes).sum(), grid.mesh,
+                     everyone(grid.mesh)) \
         / grid.mesh.n_cells
 
 
-def _combine(grid: _Grid, parts: dict[int, torch.Tensor], n_chunks: int
+def _combine(grid: Grid, parts: dict[int, torch.Tensor], n_chunks: int
              ) -> torch.Tensor:
     """(T, D) from the row chunks ``parts`` (chunk index -> rows, ``n_chunks``
     chunks of equal size): without a group they are every chunk,
@@ -462,7 +336,7 @@ def _combine(grid: _Grid, parts: dict[int, torch.Tensor], n_chunks: int
     for c, part in parts.items():
         full = full.index_copy(0, torch.arange(c * n, (c + 1) * n,
                                                device=part.device), part)
-    return _AllReduce.apply(full, grid.mesh)
+    return Sum.apply(full, grid.mesh, everyone(grid.mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -482,7 +356,7 @@ def moe_fwd_sharded(params: dict, x: torch.Tensor, *, n_experts: int,
     the tp cells' partial outputs are summed."""
     e_fsdp = fsdp if expert_fsdp == -1 else bool(expert_fsdp)
     t, d = x.shape
-    grid = _Grid(axes.mesh, axes.dp, axes.tp)
+    grid = Grid(axes.mesh, axes.dp, axes.tp)
     dp_n, tp_n = grid.dp_n, grid.tp_n
     t_local = t // dp_n
     e_local = n_experts // tp_n
@@ -552,7 +426,7 @@ def moe_fwd_a2a(params: dict, x: torch.Tensor, *, n_experts: int,
     all-to-all over its dp row, runs its experts (capacity per expert),
     and a second all-to-all returns the outputs to the tokens' owners."""
     t, d = x.shape
-    grid = _Grid(axes.mesh, axes.dp, axes.tp)
+    grid = Grid(axes.mesh, axes.dp, axes.tp)
     dp_n, tp_n = grid.dp_n, grid.tp_n
     t_cell = t // (dp_n * tp_n)
     e_local = n_experts // tp_n
@@ -615,7 +489,7 @@ def moe_fwd_a2a(params: dict, x: torch.Tensor, *, n_experts: int,
     return out, _mean_aux(grid, auxes)
 
 
-def _all_to_all(grid: _Grid, sends: dict) -> dict:
+def _all_to_all(grid: Grid, sends: dict) -> dict:
     """Each local cell's tensors (tp, ...): row j to the cell of tp index j
     in its dp row; row j of the result from that cell."""
     if grid.group is None:
@@ -623,6 +497,6 @@ def _all_to_all(grid: _Grid, sends: dict) -> dict:
                                              for tj in range(grid.tp_n)])
                                 for n in range(len(sends[(di, ti)])))
                 for di, ti in sends}
-    peers = _peers(grid.mesh, grid.mesh.rank, (grid.tp,))
+    peers = peer_cells(grid.mesh, grid.mesh.rank, (grid.tp,))
     return {k: tuple(_AllToAll.apply(t, grid.mesh, peers) for t in ts)
             for k, ts in sends.items()}

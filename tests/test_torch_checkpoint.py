@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.index as jindex
 from repro import filter as jfilter
 from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 from repro.kernels import ref as jref
 from repro_torch.data.synthetic import iss_like
 from repro_torch.kernels import ref as tref

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.index as jindex
 from repro.core import distances as jdist
 from repro.core import forest as jforest

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 from repro.core import forest as jforest
 from repro.core import search as jsearch
 from repro_torch.convert import forest_from_numpy

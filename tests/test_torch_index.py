@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.index as jindex
 from repro.core import forest as jforest
 from repro.core.knn import exact_knn as j_exact_knn

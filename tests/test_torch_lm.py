@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.configs as jconfigs
 from repro.checkpoint import checkpointer as jckpt
 from repro.configs.base import LMConfig as JLMConfig

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.index as jindex
 from repro.core import lsh as jlsh
 from repro.data.synthetic import clustered_gaussians

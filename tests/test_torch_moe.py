@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 from repro import compat
 from repro.configs.base import LMConfig as JLMConfig
 from repro.models import moe as jmoe

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.index as jindex
 from repro.core import forest as jforest
 from repro_torch import index as tindex

@@ -1,6 +1,7 @@
 """The port's recommenders held against the reference's: ``configs/``,
 ``models/layers.py``, ``models/recsys.py``, ``data/recsys_data.py``,
-``launch/mesh.py`` and ``launch/steps.py``'s recsys programs.
+``launch/mesh.py`` and ``launch/steps.py``'s recsys programs (and the
+MACE cells' meta and argument shapes).
 
 Small configurations as ``tests/test_smoke_archs.py`` makes them (tables of
 at most 500 rows, 2,000 items, ``row_pad_to`` 8, a batch of 16).  The
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.configs as jconfigs
 from repro.core import forest as jforest
 from repro.core import sharded_index as jsharded
@@ -33,6 +35,7 @@ from repro.data import recsys_data as jdata
 from repro.launch import mesh as jmesh
 from repro.launch import steps as jsteps
 from repro.models import layers as jl
+from repro.models import mace as jmace
 from repro.models import recsys as jrs
 import repro_torch.configs as tconfigs
 from repro_torch.convert import recsys_from_numpy
@@ -63,6 +66,8 @@ def _smoke(cfg):
 def _canon(tree, leaf):
     """Nested dicts / lists / tuples with ``leaf`` applied: both packages'
     trees compare by ``==`` (a NamedTuple equals a tuple of its fields)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _canon(v, leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -540,11 +545,21 @@ def test_recsys_meta_and_args_at_full_size(arch):
             assert _t_shapes(got.args) == _ref_shapes(want.args)
 
 
-@pytest.mark.parametrize("arch, cell", [("mace", "molecule"),
-                                        ("mace", "full_graph_sm")])
-def test_build_cell_refuses_what_is_not_ported(arch, cell):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tsteps.build_cell(arch, cell, device="cpu")
+@pytest.mark.parametrize("cell", ["molecule", "full_graph_sm",
+                                  "minibatch_lg", "ogb_products"])
+def test_gnn_cells_meta_and_args_at_full_size(cell):
+    # the reference caches its CG tables on first use; a first use under
+    # its build_cell's eval_shape would cache tracers
+    jmace._paths_and_cg(2)
+    want = jsteps.build_cell("mace", cell, _jmesh11(), False)
+    got = tsteps.build_cell("mace", cell, device="cpu")
+    assert got.meta == want.meta
+    assert _t_shapes(got.args) == _ref_shapes(want.args)
+    with pytest.raises(ValueError, match="unknown gnn variant"):
+        tsteps.build_cell("mace", cell, variant="nope=1", device="cpu")
+    if cell != "ogb_products":   # the one-card node cut is that cell's
+        with pytest.raises(ValueError, match="unknown gnn variant"):
+            tsteps.build_cell("mace", cell, variant="nodes=64", device="cpu")
 
 
 def test_build_cell_variants():

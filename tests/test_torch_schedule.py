@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.index as jindex
 from repro.core import adaptive as jadaptive
 from repro.core import forest as jforest

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.index as jindex
 import repro.serve as jserve
 from repro.core import forest as jforest

@@ -25,6 +25,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.index as jindex
 from repro.core import forest as jforest
 from repro.serve import runtime as jruntime

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_release import release_compiled_executables  # noqa: F401
 import repro.configs as jconfigs
 from repro.checkpoint import checkpointer as jckpt
 from repro.launch import mesh as jmesh
@@ -626,7 +627,7 @@ def test_launch_train_trains_the_moe_lms(arch):
     assert hist["step"] == [0, 1, 2] and np.isfinite(hist["loss"]).all()
 
 
-@pytest.mark.parametrize("arch", ["mace"])
-def test_launch_train_refuses_what_is_not_ported(arch):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tlaunch.main(["--arch", arch, "--device", "cpu"])
+def test_launch_train_trains_mace():
+    hist = tlaunch.main(["--arch", "mace", "--preset", "smoke", "--steps",
+                         "3", "--device", "cpu"])
+    assert hist["step"] == [0, 1, 2] and np.isfinite(hist["loss"]).all()
