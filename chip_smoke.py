@@ -5,7 +5,7 @@
     python3 chip_smoke.py --depth-cap 128   # an earlier build's kernels,
                                             # which refused deeper trees
 
-Eighteen paths, each driven through the entry points a user calls, with every
+Nineteen paths, each driven through the entry points a user calls, with every
 kernel launch and plain-version call counted from zero just before it and
 read just after (every kernel of the path must have launched, no plain
 version may have run):
@@ -253,6 +253,20 @@ version may have run):
            steps) with the 8 aten ops that take the most device time,
            ``model_flops`` over the fp32 peak, whether two runs of a step
            are bit for bit equal (``index_add_``'s atomics)
+  examples ``examples/quickstart_torch.py`` (``rpf`` at L = 5, 20, 80 over
+           20,000 MNIST-like rows, ``tune`` on a held-out half,
+           ``rpf+int8`` with and without waves, add / delete / upsert /
+           compact, chi2: kernels A, B, C and B's scan),
+           ``ann_serving_torch.py`` (``make_ann_server`` over 10,000 rows,
+           128 concurrent clients, an add queryable at once, a delete and a
+           background compaction while serving: A, B and the scan) and
+           ``two_tower_retrieval_torch.py`` (2,000 users, 20,000 items, 200
+           AdamW steps, ``rpf`` over the unit item tower, ``metric="ip"``
+           at P = 8: A and B), each at its full size, called through its
+           ``main``.  Checks: each example's own asserts (the mutation
+           block's answers, the served add and delete, two-tower recall@20
+           >= 0.8 against exact MIPS), recall non-decreasing in L, every
+           client answered
 
 Phases, each printing one JSON line:
 
@@ -312,6 +326,19 @@ Phases, each printing one JSON line:
   lm       the gates' line, one line per LM cell and the kNN-LM
            datastore's line
   gnn      the gates' line and one line per MACE cell
+  examples one line per example: wall seconds, launches and what it
+           printed; quickstart's recall at every L, the tuned operating
+           point, the int8 recalls and trees used; the served batcher's
+           stats; two-tower's first and last loss and recall@20
+  roofline every model cell the recsys, train, lm, moe and gnn paths timed,
+           at its cut, traced on the ``meta`` device by
+           ``launch/dryrun.py`` and put through ``roofline.py`` (H100 SXM:
+           989 TFLOP/s bf16, 67 fp32, 3.35 TB/s): compute, memory, ideal
+           and bound ms, the dominant term, the measured ms and ideal /
+           measured, which may not exceed 1.05; then the dry run's argument
+           bytes of ``mace/molecule``, ``mind/serve_p99`` and
+           ``smollm-135m/decode_32k`` at ``batch=8`` against the device
+           memory ``make_args`` allocates on the card (within 1% + 1 MB)
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -2919,6 +2946,10 @@ def main():
     # table rows a 64-user slab touches), the brute retrievals' ids at
     # every untied rank, rpf=1 against kernel_mode="ref" by the compare
     # rule, H by its rule, a second build's forest bit for bit
+    # every model cell the recsys, train, lm, moe and gnn paths time:
+    # (arch, cell, variant, ms), for phase ``roofline``
+    timed = []
+
     def recsys_path():
         from repro_torch.configs import get_arch
         from repro_torch.kernels.common import topk_smallest
@@ -3001,6 +3032,7 @@ def main():
                                              f"{arch} {cell}")
             ms = time_ms(torch, lambda: prog.fn(params, batch),
                          25 if b <= 512 else 5)
+            timed.append((arch, cell, variant, ms))
             row = {"arch": arch, "cell": cell, "variant": variant,
                    "batch": b, "ms": ms, "users_per_s": b / ms * 1e3,
                    "peak_device_gb": peak / 1e9, "args_s": args_s,
@@ -3034,10 +3066,12 @@ def main():
             errs[f"{arch} retrieval"] = compare_topk(
                 torch, got, (wd, cand.cpu()[wi]), steps.K_RETRIEVE,
                 tol=tol64[0] * wd.abs() + tol64[1])
+            ms = time_ms(torch, lambda: prog.fn(params, user, cand), 10)
+            timed.append((arch, "retrieval_cand", variant, ms))
             emit({"phase": "recsys", "card": smi,
                 "arch": arch, "cell": "retrieval_cand", "variant": variant,
                 "candidates": cand.shape[0], "distinct_rows": len(uniq),
-                "ms": time_ms(torch, lambda: prog.fn(params, user, cand), 10),
+                "ms": ms,
                 "max_abs_err_vs_f64": errs[f"{arch} retrieval"],
                 "untied_ranks": untied(wd[0, :steps.K_RETRIEVE + 1]),
                 "launches": launches, "meta": prog.meta})
@@ -3131,6 +3165,8 @@ def main():
         rpf_set, exact_set = set(r_ids[0].tolist()), set(x_i[0].tolist())
         brute_set = set(b_ids[0].tolist())
         rpf_ms = time_ms(torch, lambda: rpf.fn(params, hist, forest), 25)
+        timed.extend([("mind", "retrieval_cand", "base", brute_ms),
+                      ("mind", "retrieval_cand", "rpf=1", rpf_ms)])
         emit({"phase": "recsys", "card": smi, "arch": "mind", "cell": "retrieval_cand", "catalog": list(
                 params.item_embed.shape), "interests": cfg.n_interests,
             "brute_ms": brute_ms, "rpf_ms": rpf_ms,
@@ -3544,6 +3580,7 @@ def main():
                 state, _ = prog.fn(state, batch)
 
             ms = time_ms(torch, one, 10, warm=3)
+            timed.append((arch, "train_batch", variant, ms))
             row.update({"ms_per_step": ms, "examples_per_s": b / ms * 1e3})
             state, row["device_ms"], row["top_kernels_ms"] = phases(
                 cfg, state, batch)
@@ -3756,6 +3793,7 @@ def main():
 
             (ms, idle), launches, ref_calls = counted(torch, counters, drive)
             require(launches, ref_calls, (), f"{path} {arch} {cell}")
+            timed.append((arch, cell, variant, ms))
             path_launches.update(launches)
             peak = torch.cuda.max_memory_allocated()
             meta = prog.meta
@@ -4528,6 +4566,7 @@ def main():
 
             (ms, idle), launches, ref_calls = counted(torch, counters, drive)
             require(launches, ref_calls, (), f"gnn {cell} {variant}")
+            timed.append(("mace", cell, variant, ms))
             gnn_launches.update(launches)
             peak = torch.cuda.max_memory_allocated()
             ls = [float(x) for x in losses]
@@ -4573,6 +4612,136 @@ def main():
         return dict(gnn_launches)
 
     launches_by_path["gnn"] = gnn_path()
+
+    # ---- path: examples (the public surface end to end) ------------------
+    # examples/quickstart_torch.py (rpf at L = 5, 20, 80 over 20,000
+    # MNIST-like rows, tune on a held-out half, rpf+int8 with and without
+    # waves, add / delete / upsert / compact, chi2), ann_serving_torch.py
+    # (make_ann_server over 10,000 rows, 128 concurrent clients, an add
+    # queryable at once, a delete and a background compaction while
+    # serving) and two_tower_retrieval_torch.py (2,000 users, 20,000 items,
+    # 200 AdamW steps, rpf over the unit item tower, ip at P = 8), each at
+    # its full size on the card with the launches counted from zero around
+    # it.  Gates: each example's own asserts (two-tower recall@20 >= 0.8
+    # against exact MIPS); the kernels below must launch and no plain
+    # version may run
+    def examples_path():
+        sys.path.insert(0, os.path.join(ROOT, "examples"))
+        try:
+            import ann_serving_torch
+            import quickstart_torch
+            import two_tower_retrieval_torch
+        finally:
+            sys.path.pop(0)
+        ex_launches = collections.Counter()
+        dev_args = ["--device", "cuda"]
+        for name, mod, names in (
+                ("quickstart", quickstart_torch,
+                 ("forest_traverse", "fused_gather_topk",
+                  "fused_gather_topk_int8", "fused_scan")),
+                ("ann_serving", ann_serving_torch,
+                 ("forest_traverse", "fused_gather_topk", "fused_scan")),
+                ("two_tower_retrieval", two_tower_retrieval_torch,
+                 ("forest_traverse", "fused_gather_topk"))):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                out, launches, ref_calls = counted(
+                    torch, counters, lambda: mod.main(dev_args))
+            wall = time.perf_counter() - t0
+            require(launches, ref_calls, names, f"examples {name}")
+            ex_launches.update(launches)
+            row = {"phase": "examples", "card": smi, "example": name,
+                   "wall_s": wall, "launches": launches,
+                   "printed": said.getvalue().splitlines()}
+            if name == "quickstart":
+                rec = out["recall_by_trees"]
+                check(rec[5] <= rec[20] <= rec[80] and rec[5] < rec[80],
+                      f"examples quickstart: recall by L {rec}")
+                row.update({k: out[k] for k in (
+                    "recall_by_trees", "tuned", "int8_recall",
+                    "int8_waves_recall", "int8_waves_trees_used",
+                    "mutated", "compacted")})
+            elif name == "ann_serving":
+                check(out["batcher"]["requests"] == out["clients"],
+                      f"examples ann_serving: {out['batcher']}")
+                row.update(batcher=out["batcher"],
+                           concurrent_ms=out["wall_ms"],
+                           stats={k: out["stats"][k] for k in (
+                               "n_live", "n_segments", "n_compactions")})
+            else:
+                row.update(losses_first_last=[out["loss"][0],
+                                              out["loss"][-1]],
+                           recall_at_20=out["recall"],
+                           taste_hit=out["taste_hit"])
+            emit(row)
+        for name in ("forest_traverse", "fused_gather_topk",
+                     "fused_gather_topk_int8", "fused_scan"):
+            check(ex_launches[name] > 0, f"{name} never launched on examples")
+        return dict(ex_launches)
+
+    launches_by_path["examples"] = examples_path()
+
+    # ---- phase: roofline (the dry run on meta beside the card's times) ---
+    # every model cell timed above, at its cut, traced on the meta device
+    # by launch/dryrun.py and put through roofline.py's H100 constants.
+    # Gates: no cell's ideal time above 1.05 x its measured ms (no card
+    # beats its roofline: a larger ideal means a wrong count or constant),
+    # and for three cheap cells the dry run's argument bytes within 1% + 1
+    # MB of the device memory make_args allocates on the card
+    def roofline_phase():
+        from repro_torch import roofline
+        from repro_torch.launch import dryrun, steps
+        t0 = time.perf_counter()
+        rows = []
+        for arch, cell, variant, ms in timed:
+            rec = dryrun.run_cell(arch, cell, variant, save=False)
+            t = roofline.roofline_terms(rec)
+            row = {"phase": "roofline", "card": smi, "arch": arch,
+                   "cell": cell, "variant": variant,
+                   "compute_ms": t["compute_s"] * 1e3,
+                   "memory_ms": t["memory_s"] * 1e3,
+                   "ideal_ms": t["ideal_s"] * 1e3,
+                   "bound_ms": t["bound_s"] * 1e3, "dominant": t["dominant"],
+                   "measured_ms": ms, "ideal_over_measured":
+                       t["ideal_s"] * 1e3 / ms,
+                   "model_flops": t["model_flops"],
+                   "counted_flops": t["counted_flops"],
+                   "model_bytes": t["model_bytes"],
+                   "trace_s": rec["trace_s"]}
+            emit(row)
+            rows.append(row)
+            check(row["ideal_over_measured"] <= 1.05,
+                  f"roofline {arch} {cell} {variant}: ideal "
+                  f"{row['ideal_ms']} ms over measured {ms} ms")
+        gen = torch.Generator(device=dev)
+        byte_rows = []
+        for arch, cell, variant in (("mace", "molecule", "base"),
+                                    ("mind", "serve_p99", "base"),
+                                    ("smollm-135m", "decode_32k", "batch=8")):
+            want = dryrun.run_cell(arch, cell, variant, save=False)[
+                "memory"]["argument_bytes"]
+            prog = steps.build_cell(arch, cell, variant=variant, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            args = prog.make_args(gen.manual_seed(0))
+            torch.cuda.synchronize()
+            grew = torch.cuda.memory_allocated() - before
+            del args, prog
+            torch.cuda.empty_cache()
+            byte_rows.append({"arch": arch, "cell": cell,
+                              "variant": variant, "dry_run_bytes": want,
+                              "card_bytes": grew})
+            check(abs(grew - want) <= 0.01 * want + 1e6,
+                  f"roofline {arch} {cell}: the dry run's {want} argument "
+                  f"bytes against {grew} allocated on the card")
+        emit({"phase": "roofline", "card": smi, "cells": len(rows),
+              "argument_bytes": byte_rows,
+              "worst_ideal_over_measured": max(
+                  r["ideal_over_measured"] for r in rows),
+              "seconds": time.perf_counter() - t0})
+
+    roofline_phase()
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

@@ -21,7 +21,13 @@ train, serve and retrieval cell and every MACE train cell this builds a
     uniform ids for a MIND batch over ``STREAM_MAX_BATCH`` users, where
     ``BehaviorStream``'s loop over users would take seconds), candidate
     ids ``arange(n)``, and for ``rpf=1`` the catalog's forest
-    (``build_catalog_index``).
+    (``build_catalog_index``);
+  * ``meta_args()``, arguments that ``fn`` accepts on the ``meta`` device
+    and that draw no data: the model built there (no storage), a train
+    cell's ``TrainState`` with ``make_args``' leaves and ``requires_grad``,
+    the batch (and an LM's cache and ``pos``, an ``rpf=1`` retrieval's
+    forest) empty tensors of ``args``' shapes and dtypes.
+    ``launch/dryrun.py`` runs ``fn`` on them to count its FLOPs and bytes.
 
 The LM cells (``models/transformer``): train takes one step of the
 reference's optimizer (AdamW at ``constant_schedule(1e-4)``, its moments
@@ -122,11 +128,18 @@ class CellProgram(NamedTuple):
     args: tuple                # ShapeDtype trees, the reference's layout
     meta: dict                 # model_flops etc.
     make_args: Callable        # (generator) -> real args on the device
+    meta_args: Callable        # () -> args on "meta", no data drawn
 
 
 def _sds(tree):
     """tensor tree -> ShapeDtype tree."""
     return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), tree)
+
+
+def _empty(tree):
+    """ShapeDtype tree -> empty tensors on the ``meta`` device."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), tree)
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -203,6 +216,8 @@ def _lm_train_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
         args=(state_sds, batch_sds),
         meta=_lm_meta(cfg, cell, n_tokens=b * s, kind="train"),
         make_args=make_args,
+        meta_args=lambda: (init_train_state(_lm_init(cfg)(), opt),
+                           _empty(batch_sds)),
     )
 
 
@@ -229,6 +244,8 @@ def _lm_prefill_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
         args=(params_sds, cache_sds, tok_sds),
         meta=_lm_meta(cfg, cell, n_tokens=b * s, kind="prefill"),
         make_args=make_args,
+        meta_args=lambda: (_lm_init(cfg)(), _empty(cache_sds),
+                           _empty(tok_sds)),
     )
 
 
@@ -260,6 +277,8 @@ def _lm_decode_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
         args=(params_sds, cache_sds, tok_sds, pos_sds),
         meta=_lm_meta(cfg, cell, n_tokens=b, kind="decode"),
         make_args=make_args,
+        meta_args=lambda: (_lm_init(cfg)(), _empty(cache_sds),
+                           _empty(tok_sds), _empty(pos_sds)),
     )
 
 
@@ -570,8 +589,11 @@ def _gnn_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     # gnn_loss's metrics are empty: a step returns {"loss"}
     step = make_train_step(gnn_loss(cfg, sizes, n_classes, axes,
                                     "unroll=1" in variant), opt)
-    return CellProgram(fn=step, args=(state_sds, batch_sds), meta=meta,
-                       make_args=make_args)
+    return CellProgram(
+        fn=step, args=(state_sds, batch_sds), meta=meta,
+        make_args=make_args,
+        meta_args=lambda: (init_train_state(mace_mod.init_mace(
+            None, cfg, n_classes, "meta"), opt), _empty(batch_sds)))
 
 
 # ===========================================================================
@@ -685,6 +707,8 @@ def _recsys_train_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
         args=(state_sds, batch_sds),
         meta=_recsys_meta(cfg, cell, params_sds),
         make_args=make_args,
+        meta_args=lambda: (init_train_state(_recsys_init(cfg)(), opt),
+                           _empty(batch_sds)),
     )
 
 
@@ -710,6 +734,7 @@ def _recsys_serve_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
         args=(params_sds, batch_sds),
         meta=_recsys_meta(cfg, cell, params_sds, train=False),
         make_args=make_args,
+        meta_args=lambda: (_recsys_init(cfg)(), _empty(batch_sds)),
     )
 
 
@@ -790,11 +815,20 @@ def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
     # model flops: traversal + rerank of L*C candidates per interest
     cand = fcfg.n_trees * local_cfg.leaf_pad
     flops = 2 * cand * cfg.n_interests * cfg.embed_dim
+
+    def meta_args():
+        cells = tuple(((di, ti), tree_map(lambda s: torch.empty(
+            s.shape[2:], dtype=s.dtype, device="meta"), forest_sds))
+            for di in range(dpn) for ti in range(mesh.shape["model"]))
+        return (_recsys_init(cfg)(), _empty(hist_sds),
+                ShardedForest(cells, n_local, local_cfg))
+
     return CellProgram(
         fn=retrieve,
         args=(params_sds, hist_sds, forest_sds),
         meta=_recsys_meta(cfg, cell, params_sds, train=False, flops=flops),
         make_args=make_args,
+        meta_args=meta_args,
     )
 
 
@@ -834,6 +868,7 @@ def _recsys_retrieval_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
                               flops=2 * N_CAND * cfg.n_interests
                               * cfg.embed_dim),
             make_args=make_args,
+            meta_args=lambda: (_recsys_init(cfg)(), _empty(hist_sds)),
         )
 
     cand_sds = ShapeDtype((n_cand,), torch.int32)
@@ -858,11 +893,16 @@ def _recsys_retrieval_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
                 recsys_data(cfg, 1, generator.initial_seed(), dev),
                 torch.arange(n_cand, dtype=torch.int32, device=dev))
 
+    # a cand=N cut counts the N candidates it scores
+    scored = dataclasses.replace(cell, n_candidates=min(cell.n_candidates,
+                                                        n_cand))
     return CellProgram(
         fn=retrieve,
         args=(params_sds, user_sds, cand_sds),
-        meta=_recsys_meta(cfg, cell, params_sds, train=False),
+        meta=_recsys_meta(cfg, scored, params_sds, train=False),
         make_args=make_args,
+        meta_args=lambda: (_recsys_init(cfg)(), _empty(user_sds),
+                           _empty(cand_sds)),
     )
 
 
