@@ -339,6 +339,15 @@ Phases, each printing one JSON line:
            bytes of ``mace/molecule``, ``mind/serve_p99`` and
            ``smollm-135m/decode_32k`` at ``batch=8`` against the device
            memory ``make_args`` allocates on the card (within 1% + 1 MB)
+  placements a one-rank NCCL group and a (1, 1) ``DeviceMesh``: smollm-135m
+           and granite-moe-1b decode at batch 8, MIND ``serve_p99`` and
+           MACE ``molecule`` run on DTensor arguments (``shard_args``);
+           each output bit for bit the plain program's (granite, now on
+           ``moe_fwd_sharded``, within 2^-6 of its largest logit), kernel
+           H launched on the sharded MIND cell; then one cell a family
+           traced on ``meta`` over the fake process group on the
+           production (16, 16) and (2, 16, 16) meshes: rank 0's GB,
+           collective GB by kind, whether it fits 80 GB, the seconds
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -4742,6 +4751,123 @@ def main():
               "seconds": time.perf_counter() - t0})
 
     roofline_phase()
+
+    # ---- phase: placements (the cells on a DeviceMesh, DTensor arguments)
+    # a one-rank NCCL group and a (1, 1) DeviceMesh: smollm-135m decode
+    # (batch 8), granite-moe-1b decode (batch 8: the MoE blocks now take
+    # moe_fwd_sharded), MIND serve_p99 (the row-split catalog gathered
+    # through kernel H) and MACE molecule (one train step) at full width,
+    # their arguments split by shard_args as the programs' placements say.
+    # Gates: each output bit for bit the plain program's on the same seed
+    # (granite within the moe path's bf16 rule of its plain decode: 2^-6
+    # of the largest logit, its dispatch runs other ops), kernel H launched
+    # on the sharded MIND cell, no plain version.  Then the fake-group dry
+    # run of one cell a family at full size on the production meshes
+    # (16, 16) and (2, 16, 16): rank 0's GB, collective GB by kind, whether
+    # its arguments fit 80 GB
+    def placements_phase():
+        import torch.distributed as dist
+        from repro_torch.launch import dryrun, steps
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.tree import flatten_with_names
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        pl_launches = collections.Counter()
+
+        def local(t):
+            return t.to_local() if hasattr(t, "to_local") else t
+
+        rows = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            dm = mesh_mod.make_device_mesh((1, 1), ("data", "model"), "cuda")
+            for arch, cell, variant, names in (
+                    ("smollm-135m", "decode_32k", "batch=8", ()),
+                    ("granite-moe-1b-a400m", "decode_32k", "batch=8", ()),
+                    ("mind", "serve_p99", "base", ("embedding_bag",)),
+                    ("mace", "molecule", "base", ())):
+                plain = steps.build_cell(arch, cell, variant=variant,
+                                         device=dev)
+                want = flatten_with_names(plain.fn(*plain.make_args(
+                    gen.manual_seed(0))))
+                del plain
+                prog = steps.build_cell(arch, cell, dm, variant=variant)
+                args = prog.shard_args(prog.make_args(gen.manual_seed(0)))
+                got, launches, ref_calls = counted(
+                    torch, counters, lambda: prog.fn(*args))
+                require(launches, ref_calls, names,
+                        f"placements {arch} {cell}")
+                pl_launches.update(launches)
+                got = flatten_with_names(got)
+                check([n for n, _ in got] == [n for n, _ in want],
+                      f"placements {arch} {cell}: outputs differ in kind")
+                errs, exact = {}, True
+                for (name, g), (_, w) in zip(got, want):
+                    if not isinstance(w, torch.Tensor):
+                        continue
+                    g = local(g)
+                    same = bool(torch.equal(g, w))
+                    exact &= same
+                    # in slices: a cache is GBs
+                    errs[name] = 0.0 if same else max(float(
+                        (a_.double() - b_.double()).abs().max())
+                        for a_, b_ in zip(g.reshape(-1).split(1 << 24),
+                                          w.reshape(-1).split(1 << 24)))
+                if arch.startswith("granite"):
+                    top = float(want[0][1].abs().max())
+                    check(errs[want[0][0]] <= 2.0 ** -6 * top,
+                          f"placements {arch}: logits {errs[want[0][0]]} "
+                          f"off the plain decode's (largest {top})")
+                else:
+                    check(exact, f"placements {arch} {cell}: not bit for "
+                                 f"bit the plain program: {errs}")
+                rows[f"{arch}/{cell}/{variant}"] = {
+                    "bit_for_bit": exact, "max_abs_err": max(errs.values()),
+                    "launches": launches}
+                del args, prog, want, got
+                torch.cuda.empty_cache()
+            backend = dist.get_backend(dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+            torch.use_deterministic_algorithms(False)
+        check(pl_launches["embedding_bag"] > 0,
+              "embedding_bag never launched on the sharded MIND cell")
+        t_cells = time.perf_counter() - t0
+        dry = {}
+        try:
+            for mesh in ("single", "multipod"):
+                for arch, cell in (("smollm-135m", "decode_32k"),
+                                   ("granite-moe-1b-a400m", "decode_32k"),
+                                   ("mind", "serve_p99"),
+                                   ("mace", "molecule")):
+                    r = dryrun.run_cell(arch, cell, save=False, mesh=mesh)
+                    gb = (r["memory"]["argument_bytes"]
+                          + r["memory"]["output_bytes"]) / 1e9
+                    check(r["n_devices"] == (256 if mesh == "single"
+                                             else 512),
+                          f"placements dry run {arch} {mesh}: "
+                          f"{r['n_devices']} devices")
+                    dry[f"{arch}/{cell}/{mesh}"] = {
+                        "rank_gb": gb,
+                        "argument_gb": r["memory"]["argument_bytes"] / 1e9,
+                        "peak_gb": r["memory"]["peak_bytes"] / 1e9,
+                        "collective_gb": {
+                            k: v / 1e9 for k, v in
+                            r["collectives"]["bytes"].items() if v},
+                        # the live peak: arguments, activations, buffers
+                        "fits_80gb": r["memory"]["peak_bytes"] < 80e9,
+                        "trace_s": r["trace_s"]}
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        emit({"phase": "placements", "card": smi, "backend": backend,
+              "cells": rows, "dry_run": dry, "cells_s": t_cells,
+              "seconds": time.perf_counter() - t0})
+        return dict(pl_launches)
+
+    launches_by_path["placements"] = placements_phase()
 
     # descent: bytes are 16 B per (tree, query, level reached) -- child_base,
     # feat, thresh, q[b, feat] -- plus the leaf's child_base and the output.

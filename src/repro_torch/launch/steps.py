@@ -51,12 +51,28 @@ MSE, at the reference's padded sizes (``_gnn_sizes``: ``n_nodes``,
 its edges sorted by receiver shard and padded per shard with masked
 self-loops.
 
-The reference's ``in_shardings`` place the inputs over a TPU mesh; one
-process has no counterpart.  The mesh is the port's logical
-``core.sharded_index.Mesh`` (``Mesh((1, 1))`` on the device by default);
-the ``rpf=1`` retrieval runs cells on it, and the MACE cells' message
-passing runs ``mace_fwd``'s mesh path over its dp axes, as the
-reference's ``_gnn_program`` always passes its mesh.
+Every program also carries ``placements``, the reference's
+``in_shardings`` without their mesh: a tree of specs (``models/layers.P``)
+leaf for leaf over ``args``, built from the models' ``*_specs`` as the
+reference builds them (``lm_param_specs``, ``cache_specs``,
+``_recsys_specs``, the Adafactor factors' ``_vr`` / ``_vc``, the batch
+split over dp).  The mesh is either
+
+* the port's logical ``core.sharded_index.Mesh`` (``Mesh((1, 1))`` on the
+  device by default): the programs run on plain tensors as they always
+  did; the ``rpf=1`` retrieval runs cells on it, and the MACE cells'
+  message passing runs ``mace_fwd``'s mesh path over its dp axes, as the
+  reference's ``_gnn_program`` always passes its mesh; or
+* a ``DeviceMesh`` with the reference's axis names (``launch/mesh``):
+  ``shard_args(args, placements, mesh)`` (``prog.shard_args(args)``)
+  turns ``make_args``' or ``meta_args``' tensors into DTensors split as
+  the placements say, this rank keeping its shard, and ``fn`` runs on
+  them: the models constrain activations where the reference does, the
+  LM cells pass the mesh so their MoE blocks take the expert-parallel
+  paths, the tables gather vocab-parallel, MACE passes messages over the
+  mesh's dp group.  Tensors a program makes itself (positions, masks,
+  constants) are replicated (``implicit_replication``); an op with no
+  DTensor rule raises.  The ``rpf=1`` retrieval has no DeviceMesh form.
 
 ``variant`` is "base" or comma-separated keys.  LM cells take the
 reference's keys (``_apply_lm_variant``: ``nl=N`` cuts the depth,
@@ -98,12 +114,15 @@ from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import mace as mace_mod
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tr
-from repro_torch.models.layers import Axes, upcast
-from repro_torch.train.optimizer import (AdamState, adafactor, adamw,
-                                         constant_schedule)
+from repro_torch.models.layers import (Axes, P, constrain, is_device_mesh,
+                                       is_dtensor, mesh_sizes, placements,
+                                       upcast)
+from repro_torch.train.optimizer import (AdamState, FactorState, adafactor,
+                                         adamw, constant_schedule)
 from repro_torch.train.train_state import (TrainState, init_train_state,
                                            make_train_step)
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import (children, flatten_with_names, leaves,
+                              tree_map)
 
 K_RETRIEVE = 100
 # 1M candidates padded to 2^20 (the reference shards them over 256 and 512
@@ -129,6 +148,88 @@ class CellProgram(NamedTuple):
     meta: dict                 # model_flops etc.
     make_args: Callable        # (generator) -> real args on the device
     meta_args: Callable        # () -> args on "meta", no data drawn
+    placements: tuple          # spec trees over args (in_shardings' specs)
+    mesh: object = None        # the mesh the program was built on
+
+    def shard_args(self, args, mesh=None):
+        """``args`` as DTensors on ``mesh`` (the program's DeviceMesh by
+        default), split as ``placements`` say."""
+        return shard_args(args, self.placements,
+                          self.mesh if mesh is None else mesh)
+
+
+def _shard_leaf(t: torch.Tensor, spec: P, mesh):
+    from torch.distributed.tensor import distribute_tensor
+    pl = placements(spec, mesh)
+    if is_dtensor(t):
+        return t.redistribute(mesh, pl)
+    out = distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
+    return out.requires_grad_(t.requires_grad)
+
+
+def shard_args(args, specs, mesh):
+    """The tree ``args`` with each tensor a DTensor on the ``DeviceMesh``
+    ``mesh``, placed as its spec in ``specs`` (a tree of ``P`` over
+    ``args``) says; every rank passes the whole tensors and keeps its
+    shard.  A model's parameters are replaced in place (the model is
+    returned); ``None`` stays ``None``."""
+    from torch import nn
+    if args is None:
+        return None
+    if isinstance(args, nn.Module):
+        named = dict(flatten_with_names(specs))
+        for name, p in list(args.named_parameters()):
+            owner = args
+            *path, leaf = name.split(".")
+            for part in path:
+                owner = getattr(owner, part)
+            sharded = _shard_leaf(p.data, named[name.replace(".", "/")],
+                                  mesh)
+            setattr(owner, leaf, nn.Parameter(sharded, p.requires_grad))
+        return args
+    if isinstance(args, torch.Tensor):
+        return _shard_leaf(args, specs, mesh)
+    kids = children(args)
+    if kids is None:
+        raise TypeError(f"no placement for a {type(args).__name__}")
+    spec_kids = dict(children(specs))
+    built = [shard_args(c, spec_kids[k], mesh) for k, c in kids]
+    if isinstance(args, dict):
+        return dict(zip([k for k, _ in kids], built))
+    if hasattr(args, "_fields"):
+        return type(args)(*built)
+    return type(args)(built)
+
+
+def _on_mesh(fn: Callable, mesh) -> Callable:
+    """``fn`` as it runs on ``mesh``: on a DeviceMesh the tensors the
+    program makes itself count as replicated."""
+    if not is_device_mesh(mesh):
+        return fn
+
+    def run(*args):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            return fn(*args)
+    return run
+
+
+def _device_of(mesh) -> torch.device:
+    """Where a program on ``mesh`` makes its arguments."""
+    if is_device_mesh(mesh):
+        return torch.device(mesh.device_type)
+    return mesh.device
+
+
+def _axes(mesh, multi_pod: bool) -> Axes:
+    return Axes(dp=dp_axes(multi_pod), tp="model", mesh=mesh)
+
+
+def _model_axes(mesh, multi_pod: bool) -> Optional[Axes]:
+    """The axes an LM program hands its model: with the mesh on a
+    DeviceMesh, none on the logical mesh (one card runs ``moe_fwd``)."""
+    return _axes(mesh, multi_pod) if is_device_mesh(mesh) else None
 
 
 def _sds(tree):
@@ -146,11 +247,27 @@ def _pad_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def _dp_size(mesh: Mesh, dp: tuple[str, ...]) -> int:
+def _dp_size(mesh, dp: tuple[str, ...]) -> int:
     out = 1
     for a in dp:
-        out *= mesh.shape[a]
+        out *= mesh_sizes(mesh)[a]
     return out
+
+
+def _adam_specs(pspecs):
+    return AdamState(P(), pspecs, pspecs)
+
+
+def _factor_specs(pspecs):
+    """Adafactor's factored moments: vr drops the last param axis, vc the
+    second-to-last; their specs follow the params' accordingly."""
+    def _vr(s_):
+        return P(*s_[:-1]) if len(s_) >= 2 else s_
+
+    def _vc(s_):
+        return P(*(s_[:-2] + s_[-1:])) if len(s_) >= 2 else P(None)
+
+    return FactorState(P(), tree_map(_vr, pspecs), tree_map(_vc, pspecs))
 
 
 # ===========================================================================
@@ -199,25 +316,36 @@ def _lm_train_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     s = cell.seq_len
     batch_sds = {"tokens": ShapeDtype((b, s), torch.int32),
                  "labels": ShapeDtype((b, s), torch.int32)}
+    model_axes = _model_axes(mesh, multi_pod)
     step = make_train_step(
-        lambda p, b_: tr.loss_fn(p, b_, cfg, logit_chunk=logit_chunk), opt)
+        lambda p, b_: tr.loss_fn(p, b_, cfg, model_axes,
+                                 logit_chunk=logit_chunk), opt)
 
     def train_step(state: TrainState, batch):
         state, metrics = step(state, batch)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     def make_args(generator: torch.Generator):
-        model = _lm_init(cfg)(generator, mesh.device)
+        model = _lm_init(cfg)(generator, _device_of(mesh))
         return (init_train_state(model, opt),
-                lm_tokens(cfg, b, s, generator.initial_seed(), mesh.device))
+                lm_tokens(cfg, b, s, generator.initial_seed(),
+                          _device_of(mesh)))
 
+    axes = _axes(mesh, multi_pod)
+    pspecs = tr.lm_param_specs(cfg, axes)
+    opt_specs = (_factor_specs(pspecs) if cfg.opt == "adafactor"
+                 else _adam_specs(pspecs))
+    dp = tuple(axes.dp)
     return CellProgram(
-        fn=train_step,
+        fn=_on_mesh(train_step, mesh),
         args=(state_sds, batch_sds),
         meta=_lm_meta(cfg, cell, n_tokens=b * s, kind="train"),
         make_args=make_args,
         meta_args=lambda: (init_train_state(_lm_init(cfg)(), opt),
                            _empty(batch_sds)),
+        placements=(TrainState(P(), pspecs, opt_specs, None),
+                    {"tokens": P(dp, None), "labels": P(dp, None)}),
+        mesh=mesh,
     )
 
 
@@ -229,23 +357,29 @@ def _lm_prefill_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     cache_sds = _sds(tr.init_cache(cfg, b, s, torch.bfloat16, "meta"))
     tok_sds = ShapeDtype((b, s), torch.int32)
 
+    model_axes = _model_axes(mesh, multi_pod)
+
     @torch.no_grad()
     def prefill(params, cache, tokens):
-        return tr.decode_step(params, cache, tokens, 0, cfg, last_only=True)
+        return tr.decode_step(params, cache, tokens, 0, cfg, axes=model_axes,
+                              last_only=True)
 
     def make_args(generator: torch.Generator):
-        return (_lm_init(cfg)(generator, mesh.device),
-                tr.init_cache(cfg, b, s, torch.bfloat16, mesh.device),
+        return (_lm_init(cfg)(generator, _device_of(mesh)),
+                tr.init_cache(cfg, b, s, torch.bfloat16, _device_of(mesh)),
                 lm_tokens(cfg, b, s, generator.initial_seed(),
-                          mesh.device)["tokens"])
+                          _device_of(mesh))["tokens"])
 
+    pspecs, cspecs, bspec = _lm_serve_specs(cfg, mesh, multi_pod, b)
     return CellProgram(
-        fn=prefill,
+        fn=_on_mesh(prefill, mesh),
         args=(params_sds, cache_sds, tok_sds),
         meta=_lm_meta(cfg, cell, n_tokens=b * s, kind="prefill"),
         make_args=make_args,
         meta_args=lambda: (_lm_init(cfg)(), _empty(cache_sds),
                            _empty(tok_sds)),
+        placements=(pspecs, cspecs, P(bspec, None)),
+        mesh=mesh,
     )
 
 
@@ -258,12 +392,15 @@ def _lm_decode_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     tok_sds = ShapeDtype((b, 1), torch.int32)
     pos_sds = ShapeDtype((), torch.int32)
 
+    model_axes = _model_axes(mesh, multi_pod)
+
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
-        return tr.decode_step(params, cache, tokens, pos, cfg)
+        return tr.decode_step(params, cache, tokens, pos, cfg,
+                              axes=model_axes)
 
     def make_args(generator: torch.Generator):
-        dev = mesh.device
+        dev = _device_of(mesh)
         cache = tr.init_cache(cfg, b, s_max, torch.bfloat16, dev)
         for t in cache:
             t.normal_(generator=generator)
@@ -272,14 +409,28 @@ def _lm_decode_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
                           dev)["tokens"],
                 torch.tensor(s_max - 1, dtype=torch.int32, device=dev))
 
+    pspecs, cspecs, bspec = _lm_serve_specs(cfg, mesh, multi_pod, b)
     return CellProgram(
-        fn=decode,
+        fn=_on_mesh(decode, mesh),
         args=(params_sds, cache_sds, tok_sds, pos_sds),
         meta=_lm_meta(cfg, cell, n_tokens=b, kind="decode"),
         make_args=make_args,
         meta_args=lambda: (_lm_init(cfg)(), _empty(cache_sds),
                            _empty(tok_sds), _empty(pos_sds)),
+        placements=(pspecs, cspecs, P(bspec, None), P()),
+        mesh=mesh,
     )
+
+
+def _lm_serve_specs(cfg: LMConfig, mesh, multi_pod: bool, b: int):
+    """(param specs, cache specs, the batch's dp entry) of a prefill or
+    decode program: the cache split over the batch where it divides dp,
+    and over its sequence on tp."""
+    axes = _axes(mesh, multi_pod)
+    dp_ok = b % _dp_size(mesh, axes.dp) == 0
+    bspec = tuple(axes.dp) if dp_ok else None
+    cspec = P(None, bspec, axes.tp, None, None)
+    return tr.lm_param_specs(cfg, axes), tr.KVCache(cspec, cspec), bspec
 
 
 def _lm_meta(cfg: LMConfig, cell: ShapeCell, n_tokens: int, kind: str) -> dict:
@@ -566,11 +717,11 @@ def _gnn_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     axes = Axes(dp=dp, tp="model", mesh=mesh)
 
     def make_args(generator: torch.Generator):
-        params = mace_mod.init_mace(generator, cfg, n_classes, mesh.device)
+        params = mace_mod.init_mace(generator, cfg, n_classes, _device_of(mesh))
         batch = gnn_batch(cell, sizes, cfg, n_classes,
                           generator.initial_seed(), dpn, graph_edges)
         return (init_train_state(params, opt),
-                {k: torch.from_numpy(v).to(mesh.device)
+                {k: torch.from_numpy(v).to(_device_of(mesh))
                  for k, v in batch.items()})
 
     # model flops: per-edge tensor-product work dominates
@@ -589,11 +740,25 @@ def _gnn_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     # gnn_loss's metrics are empty: a step returns {"loss"}
     step = make_train_step(gnn_loss(cfg, sizes, n_classes, axes,
                                     "unroll=1" in variant), opt)
+    # MACE params are small: replicated
+    pspecs = tree_map(lambda _: P(), params_sds)
+    batch_specs = {"species": P(dp), "positions": P(dp, None),
+                   "senders": P(dp), "receivers": P(dp), "edge_mask": P(dp)}
+    if sizes.d_feat:
+        batch_specs["node_feat"] = P(dp, None)
+    if n_classes:
+        batch_specs["labels"] = P(dp)
+    else:
+        batch_specs["graph_ids"] = P(dp)
+        batch_specs["energy"] = P(None)
     return CellProgram(
-        fn=step, args=(state_sds, batch_sds), meta=meta,
+        fn=_on_mesh(step, mesh), args=(state_sds, batch_sds), meta=meta,
         make_args=make_args,
         meta_args=lambda: (init_train_state(mace_mod.init_mace(
-            None, cfg, n_classes, "meta"), opt), _empty(batch_sds)))
+            None, cfg, n_classes, "meta"), opt), _empty(batch_sds)),
+        placements=(TrainState(P(), pspecs, _adam_specs(pspecs), None),
+                    batch_specs),
+        mesh=mesh)
 
 
 # ===========================================================================
@@ -624,21 +789,62 @@ def _params_sds(cfg: RecsysConfig) -> dict:
     return _sds(rs.param_tree(_recsys_init(cfg)()))
 
 
+def _recsys_specs(cfg: RecsysConfig, axes: Axes) -> dict:
+    """The model's spec tree as the reference's cells place it: big
+    tables (1,000,000 rows or more) row-split over every axis, medium
+    ones (16,384 or more) over tp, small ones replicated."""
+    all_axes = tuple(axes.dp) + (axes.tp,)
+
+    def tables_spec():
+        return [P(all_axes, None) if v >= 1_000_000 else
+                (P(axes.tp, None) if v >= 16384 else P(None, None))
+                for v in cfg.table_sizes]
+
+    if cfg.model == "dlrm":
+        s = rs.dlrm_specs(cfg, axes)
+        s["tables"] = tables_spec()
+        return s
+    if cfg.model == "autoint":
+        s = rs.autoint_specs(cfg, axes)
+        s["tables"] = tables_spec()
+        return s
+    if cfg.model == "widedeep":
+        s = rs.widedeep_specs(cfg, axes)
+        s["tables"] = tables_spec()
+        s["wide_tables"] = tables_spec()
+        return s
+    if cfg.model == "mind":
+        return rs.mind_specs(cfg, axes)
+    raise ValueError(cfg.model)
+
+
 def _recsys_batch(cfg: RecsysConfig, b: int, axes: Optional[Axes],
                   train: bool) -> dict:
-    """The batch's ShapeDtypes (the reference's sds; its partition specs
-    have no counterpart)."""
-    sds = {}
+    """The batch's ShapeDtypes (the reference's sds)."""
+    return _recsys_batch_specs(cfg, b, axes, train)[0]
+
+
+def _recsys_batch_specs(cfg: RecsysConfig, b: int, axes: Optional[Axes],
+                        train: bool) -> tuple[dict, dict]:
+    """(the batch's ShapeDtypes, their specs): every leaf split over dp
+    on its first axis."""
+    dp = tuple(axes.dp) if axes is not None else ("data",)
+    sds, specs = {}, {}
     if cfg.model == "mind":
         sds["hist"] = ShapeDtype((b, cfg.hist_len), torch.int32)
         sds["target"] = ShapeDtype((b,), torch.int32)
+        specs["hist"] = P(dp, None)
+        specs["target"] = P(dp)
     else:
         if cfg.n_dense:
             sds["dense"] = ShapeDtype((b, cfg.n_dense), torch.float32)
+            specs["dense"] = P(dp, None)
         sds["sparse"] = ShapeDtype((b, cfg.n_sparse), torch.int32)
+        specs["sparse"] = P(dp, None)
     if train:
         sds["labels"] = ShapeDtype((b,), torch.float32)
-    return sds
+        specs["labels"] = P(dp)
+    return sds, specs
 
 
 def recsys_data(cfg: RecsysConfig, b: int, seed: int, device,
@@ -689,7 +895,10 @@ def _recsys_train_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     step_sds = ShapeDtype((), torch.int32)
     state_sds = TrainState(step_sds, params_sds,
                            AdamState(step_sds, params_sds, params_sds), None)
-    batch_sds = _recsys_batch(cfg, cell.batch, None, train=True)
+    axes = _axes(mesh, multi_pod)
+    batch_sds, batch_specs = _recsys_batch_specs(cfg, cell.batch, axes,
+                                                 train=True)
+    pspecs = _recsys_specs(cfg, axes)
     step = make_train_step(recsys_loss(cfg), opt)
 
     def train_step(state: TrainState, batch):
@@ -697,27 +906,31 @@ def _recsys_train_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
         return state, {"loss": metrics["loss"]}
 
     def make_args(generator: torch.Generator):
-        model = _recsys_init(cfg)(generator, mesh.device)
+        model = _recsys_init(cfg)(generator, _device_of(mesh))
         return (init_train_state(model, opt),
                 recsys_data(cfg, cell.batch, generator.initial_seed(),
-                            mesh.device, train=True))
+                            _device_of(mesh), train=True))
 
     return CellProgram(
-        fn=train_step,
+        fn=_on_mesh(train_step, mesh),
         args=(state_sds, batch_sds),
         meta=_recsys_meta(cfg, cell, params_sds),
         make_args=make_args,
         meta_args=lambda: (init_train_state(_recsys_init(cfg)(), opt),
                            _empty(batch_sds)),
+        placements=(TrainState(P(), pspecs, _adam_specs(pspecs), None),
+                    batch_specs),
+        mesh=mesh,
     )
 
 
 def _recsys_serve_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
                           multi_pod: bool) -> CellProgram:
     cfg: RecsysConfig = spec.config
-    axes = Axes(dp=dp_axes(multi_pod), tp="model", mesh=mesh)
+    axes = _axes(mesh, multi_pod)
     params_sds = _params_sds(cfg)
-    batch_sds = _recsys_batch(cfg, cell.batch, axes, train=False)
+    batch_sds, batch_specs = _recsys_batch_specs(cfg, cell.batch, axes,
+                                                 train=False)
     fwd = _recsys_fwd(cfg)
 
     @torch.no_grad()
@@ -725,16 +938,18 @@ def _recsys_serve_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
         return fwd(params, batch)
 
     def make_args(generator: torch.Generator):
-        return (_recsys_init(cfg)(generator, mesh.device),
+        return (_recsys_init(cfg)(generator, _device_of(mesh)),
                 recsys_data(cfg, cell.batch, generator.initial_seed(),
-                            mesh.device))
+                            _device_of(mesh)))
 
     return CellProgram(
-        fn=serve_step,
+        fn=_on_mesh(serve_step, mesh),
         args=(params_sds, batch_sds),
         meta=_recsys_meta(cfg, cell, params_sds, train=False),
         make_args=make_args,
         meta_args=lambda: (_recsys_init(cfg)(), _empty(batch_sds)),
+        placements=(_recsys_specs(cfg, axes), batch_specs),
+        mesh=mesh,
     )
 
 
@@ -785,13 +1000,16 @@ def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
     rows = _pad_to(cfg.item_vocab, cfg.row_pad_to)
     n_local = rows // dpn
     fcfg = MIND_FOREST
-    l_local = max(1, fcfg.n_trees // mesh.shape["model"])
+    tpn = mesh_sizes(mesh)["model"]
+    l_local = max(1, fcfg.n_trees // tpn)
     local_cfg = fcfg._replace(n_trees=l_local).resolved(n_local)
 
     params_sds = _params_sds(cfg)
-    forest_sds = _forest_sds(local_cfg, n_local,
-                             (dpn, mesh.shape["model"]))
+    forest_sds = _forest_sds(local_cfg, n_local, (dpn, tpn))
     hist_sds = ShapeDtype((1, cfg.hist_len), torch.int32)
+    if is_device_mesh(mesh):
+        raise NotImplementedError("the rpf=1 retrieval runs on the logical "
+                                  "Mesh only, not on a DeviceMesh")
     qstep = make_query_fn(local_cfg, n_local, mesh, db_axes=dp,
                           tree_axis="model", k=K_RETRIEVE, metric="l2",
                           kernel_mode=kernel_mode)
@@ -806,9 +1024,9 @@ def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
                                 K_RETRIEVE)
 
     def make_args(generator: torch.Generator):
-        params = _recsys_init(cfg)(generator, mesh.device)
+        params = _recsys_init(cfg)(generator, _device_of(mesh))
         hist = recsys_data(cfg, 1, generator.initial_seed(),
-                           mesh.device)["hist"]
+                           _device_of(mesh))["hist"]
         return params, hist, build_catalog_index(params, mesh, multi_pod,
                                                  draws)
 
@@ -819,16 +1037,23 @@ def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
     def meta_args():
         cells = tuple(((di, ti), tree_map(lambda s: torch.empty(
             s.shape[2:], dtype=s.dtype, device="meta"), forest_sds))
-            for di in range(dpn) for ti in range(mesh.shape["model"]))
+            for di in range(dpn) for ti in range(tpn))
         return (_recsys_init(cfg)(), _empty(hist_sds),
                 ShardedForest(cells, n_local, local_cfg))
 
+    # the catalog is resharded over dp rows for the index: every card owns
+    # catalog rows
+    pspecs = dict(_recsys_specs(cfg, _axes(mesh, multi_pod)))
+    pspecs["item_embed"] = P(tuple(dp), None)
     return CellProgram(
         fn=retrieve,
         args=(params_sds, hist_sds, forest_sds),
         meta=_recsys_meta(cfg, cell, params_sds, train=False, flops=flops),
         make_args=make_args,
         meta_args=meta_args,
+        placements=(pspecs, P(None, None),
+                    tree_map(lambda _: P(tuple(dp), "model"), forest_sds)),
+        mesh=mesh,
     )
 
 
@@ -843,9 +1068,11 @@ def _recsys_retrieval_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     gather clamps every id past its table to the last row.
     """
     cfg: RecsysConfig = spec.config
-    axes = Axes(dp=dp_axes(multi_pod), tp="model", mesh=mesh)
+    axes = _axes(mesh, multi_pod)
+    all_axes = tuple(axes.dp) + (axes.tp,)
     params_sds = _params_sds(cfg)
-    k, dev = K_RETRIEVE, mesh.device
+    pspecs = _recsys_specs(cfg, axes)
+    k, dev = K_RETRIEVE, _device_of(mesh)
 
     if cfg.model == "mind":
         hist_sds = ShapeDtype((1, cfg.hist_len), torch.int32)
@@ -863,12 +1090,14 @@ def _recsys_retrieval_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
                                 dev)["hist"])
 
         return CellProgram(
-            fn=retrieve, args=(params_sds, hist_sds),
+            fn=_on_mesh(retrieve, mesh), args=(params_sds, hist_sds),
             meta=_recsys_meta(cfg, cell, params_sds, train=False,
                               flops=2 * N_CAND * cfg.n_interests
                               * cfg.embed_dim),
             make_args=make_args,
             meta_args=lambda: (_recsys_init(cfg)(), _empty(hist_sds)),
+            placements=(pspecs, P(None, None)),
+            mesh=mesh,
         )
 
     cand_sds = ShapeDtype((n_cand,), torch.int32)
@@ -880,12 +1109,25 @@ def _recsys_retrieval_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     def retrieve(params, user, cand_ids):
         n = cand_ids.shape[0]
         b = {}
-        if "dense" in user:
-            b["dense"] = user["dense"].expand(n, cfg.n_dense)
-        sp = user["sparse"].expand(n, cfg.n_sparse).clone()
-        sp[:, item_field] = cand_ids
+        if is_dtensor(cand_ids):
+            # the user's context over the candidates, split as they are
+            cand = P(all_axes, None)
+            if "dense" in user:
+                b["dense"] = constrain(user["dense"].expand(n, cfg.n_dense),
+                                       cand)
+            ctx = constrain(user["sparse"][:, :item_field].expand(
+                n, item_field), cand)
+            sp = torch.cat([ctx, cand_ids[:, None]], dim=1)
+        else:
+            if "dense" in user:
+                b["dense"] = user["dense"].expand(n, cfg.n_dense)
+            sp = user["sparse"].expand(n, cfg.n_sparse).clone()
+            sp[:, item_field] = cand_ids
         b["sparse"] = sp
-        top, pos = _top_k(fwd(params, b), k)
+        scores = constrain(fwd(params, b), P(all_axes))
+        top, pos = _top_k(scores, k)
+        if is_dtensor(cand_ids):
+            cand_ids = constrain(cand_ids, P(None))
         return top, cand_ids[pos.long()]
 
     def make_args(generator: torch.Generator):
@@ -897,12 +1139,15 @@ def _recsys_retrieval_program(spec: ArchSpec, cell: ShapeCell, mesh: Mesh,
     scored = dataclasses.replace(cell, n_candidates=min(cell.n_candidates,
                                                         n_cand))
     return CellProgram(
-        fn=retrieve,
+        fn=_on_mesh(retrieve, mesh),
         args=(params_sds, user_sds, cand_sds),
         meta=_recsys_meta(cfg, scored, params_sds, train=False),
         make_args=make_args,
         meta_args=lambda: (_recsys_init(cfg)(), _empty(user_sds),
                            _empty(cand_sds)),
+        placements=(pspecs, tree_map(lambda _: P(None, None), user_sds),
+                    P(all_axes)),
+        mesh=mesh,
     )
 
 
@@ -970,8 +1215,10 @@ def _recsys_variant(cfg: RecsysConfig, variant: str
 def build_cell(arch_id: str, cell_name: str, mesh: Optional[Mesh] = None,
                multi_pod: bool = False, variant: str = "base",
                device=None) -> CellProgram:
-    """The cell's program on ``mesh`` (default: a one-cell mesh on
-    ``device``, the GPU unless ``device="cpu"``)."""
+    """The cell's program on ``mesh`` (default: a one-cell logical mesh on
+    ``device``, the GPU unless ``device="cpu"``): a
+    ``core.sharded_index.Mesh``, or a ``DeviceMesh`` with the reference's
+    axis names, over which ``fn`` takes DTensors (``prog.shard_args``)."""
     spec = get_arch(arch_id)
     cell = {c.name: c for c in spec.cells}[cell_name]
     if cell.skip:

@@ -19,6 +19,12 @@ collectives carry no gradient of their own, so each is a
 - ``Concat``: the peers' shards concatenated on dim 0; backward this
   rank's rows of the cotangent (every rank holds the same loss of the
   whole).
+
+On a ``DeviceMesh`` (a cell program's DTensors) a layer runs the same
+cells one rank a cell: ``device_cell`` is this rank's (dp, tp) cell, and
+``axes_mesh`` a ``core.sharded_index.Mesh`` over the process group of the
+ranks that differ from this one only on the named axes, which the
+collectives above take as their whole group.
 """
 from __future__ import annotations
 
@@ -191,3 +197,33 @@ class Concat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g[ctx.lo:ctx.lo + ctx.n], None, None
+
+
+def device_cell(dm, dp: Sequence[str], tp: str) -> tuple[int, int]:
+    """This rank's cell of the DeviceMesh ``dm``: (dp index, the ``dp``
+    axes raveled in their order; tp index), as ``Grid.local`` lists it."""
+    names = tuple(dm.mesh_dim_names)
+    coord = dm.get_coordinate()
+    sizes = dict(zip(names, dm.shape))
+    di = 0
+    for a in dp:
+        di = di * sizes[a] + coord[names.index(a)]
+    return di, coord[names.index(tp)]
+
+
+def axes_mesh(dm, names: Sequence[str]):
+    """A one-axis ``core.sharded_index.Mesh`` over the group of ``dm``'s
+    ranks that share this rank's coordinates off ``names`` (in the order
+    of their coordinates on ``names``, raveled)."""
+    from repro_torch.core.sharded_index import Mesh
+    names = tuple(names)
+    sub = dm[names[0]] if len(names) == 1 else dm[names]._flatten()
+    return Mesh((sub.size(),), ("_".join(names),), device=dm.device_type,
+                group=sub.get_group())
+
+
+def mesh_placements(dm, dp: Sequence[str], on_dp, on_tp) -> list:
+    """Placements over ``dm``: ``on_dp`` on each dp axis, ``on_tp`` on the
+    other (the tp axis)."""
+    return [on_dp if name in tuple(dp) else on_tp
+            for name in dm.mesh_dim_names]

@@ -45,8 +45,10 @@ peers (their backward the rank's own part of the cotangent), and the
 gradients of the inputs every rank holds (the parameters, positions and
 node features) are summed over the dp peers (``models/collectives.py``).
 Every rank passes the same inputs and gets the group-less mesh's outputs
-and gradients.  The reference's sharding constraints (``_c``) have no
-counterpart in one process.
+and gradients.  On a ``DeviceMesh`` (the cell programs' DTensors, split
+over dp as the reference's ``_c`` constrains them) each rank holds its dp
+shard's nodes and edges and the exchange runs over the mesh's dp group
+(``_mace_fwd_dtensor``).
 """
 from __future__ import annotations
 
@@ -64,8 +66,11 @@ from repro_torch.models.equivariant import (L_SLICES, coupling_paths,
                                             real_clebsch_gordan,
                                             real_sph_harm_l2)
 from repro_torch.models.collectives import (AllGather, Concat, Grid, Sum,
-                                            SumGrads, peer_cells)
-from repro_torch.models.layers import normal, upcast
+                                            SumGrads, axes_mesh, device_cell,
+                                            everyone, mesh_placements,
+                                            peer_cells)
+from repro_torch.models.layers import (P, constrain, contiguous_stride,
+                                       is_device_mesh, normal, upcast)
 from repro_torch.tree import leaves, tree_map
 
 M_TOT = 9  # sum (2l+1), l <= 2
@@ -305,10 +310,13 @@ def mace_fwd(params: dict, cfg: MACEConfig, species: torch.Tensor,
     del unroll
     n = species.shape[0]
     mesh = getattr(axes, "mesh", None) if axes is not None else None
+    if is_device_mesh(mesh):
+        return _mace_fwd_dtensor(params, cfg, species, positions, senders,
+                                 receivers, node_feat, edge_mask, graph_ids,
+                                 n_graphs, axes, n_edge_chunks)
     e_total = senders.shape[0]
     n_chunks = max(1, n_edge_chunks)
-    dt = torch.promote_types(torch.promote_types(
-        positions.dtype, params["species_embed"].dtype), torch.float32)
+    exchange = None
     if mesh is None:
         assert e_total % n_chunks == 0, "pad edges to a chunk multiple"
         shards = [(0, n, slice(None))]   # (di, n_loc, its edges)
@@ -316,18 +324,11 @@ def mace_fwd(params: dict, cfg: MACEConfig, species: torch.Tensor,
         lo, hi = 0, n
     else:
         grid = Grid(mesh, axes.dp, axes.tp)
-        dp_n = grid.dp_n
-        if n % dp_n or e_total % dp_n:
-            raise ValueError(f"{n} nodes and {e_total} edges must split "
-                             f"evenly over {dp_n} dp shards")
-        n_loc, e_loc = n // dp_n, e_total // dp_n
-        ec = max(e_loc // n_chunks, 1)
-        if e_loc % ec:
-            raise ValueError(f"{e_loc} edges a dp shard do not split into "
-                             f"chunks of {ec}")
+        n_loc, e_loc, ec = _split_sizes(n, e_total, grid.dp_n, n_chunks)
         dis = sorted({di for di, _ in grid.local})   # each dp shard once
         shards = [(di, n_loc, slice(di * e_loc, (di + 1) * e_loc))
                   for di in dis]
+        ex_dtype = _exchange_dtype(cfg)
         if grid.group is not None:
             peers = peer_cells(mesh, mesh.rank, grid.dp)
             params = tree_map(lambda t: SumGrads.apply(t, mesh, peers),
@@ -336,44 +337,88 @@ def mace_fwd(params: dict, cfg: MACEConfig, species: torch.Tensor,
             if node_feat is not None and node_feat.requires_grad:
                 node_feat = SumGrads.apply(node_feat, mesh, peers)
             lo, hi = dis[0] * n_loc, (dis[0] + 1) * n_loc
+
+            def exchange(h_):
+                return AllGather.apply(h_.to(ex_dtype), mesh, peers, 0,
+                                       False).to(h_.dtype)
         else:
             lo, hi = 0, n
-        ex_dtype = {"float32": torch.float32,
-                    "bfloat16": torch.bfloat16}[cfg.exchange_dtype]
+
+            def exchange(h_):
+                return h_.to(ex_dtype).to(h_.dtype)
+
+    edges = [(di, n_loc, senders[sl], receivers[sl],
+              None if edge_mask is None else edge_mask[sl])
+             for di, n_loc, sl in shards]
+    out = _mace_body(params, cfg, species[lo:hi], positions,
+                     None if node_feat is None else node_feat[lo:hi],
+                     None if graph_ids is None else graph_ids[lo:hi],
+                     n_graphs, edges, ec, exchange)
+    if mesh is not None and grid.group is not None:
+        out = {k: (Sum if k == "energy" else Concat).apply(
+            v, mesh, peers) for k, v in out.items()}
+    return out
+
+
+def _split_sizes(n: int, e_total: int, dp_n: int, n_chunks: int):
+    """(nodes a dp shard, edges a dp shard, edges a chunk)."""
+    if n % dp_n or e_total % dp_n:
+        raise ValueError(f"{n} nodes and {e_total} edges must split "
+                         f"evenly over {dp_n} dp shards")
+    n_loc, e_loc = n // dp_n, e_total // dp_n
+    ec = max(e_loc // n_chunks, 1)
+    if e_loc % ec:
+        raise ValueError(f"{e_loc} edges a dp shard do not split into "
+                         f"chunks of {ec}")
+    return n_loc, e_loc, ec
+
+
+def _exchange_dtype(cfg: MACEConfig) -> torch.dtype:
+    return {"float32": torch.float32,
+            "bfloat16": torch.bfloat16}[cfg.exchange_dtype]
+
+
+def _mace_body(params: dict, cfg: MACEConfig, species: torch.Tensor,
+               positions: torch.Tensor, node_feat: Optional[torch.Tensor],
+               graph_ids: Optional[torch.Tensor], n_graphs: int,
+               edges: list, ec: int, exchange) -> dict:
+    """The forward over the nodes this process holds (``species``,
+    ``node_feat`` and ``graph_ids`` their rows; ``positions`` every
+    node's): ``edges`` lists (dp index, nodes a shard, senders, receivers,
+    mask) of each dp shard held, whose receivers fall in that shard's
+    nodes (none with ``exchange`` None: one shard, all nodes);
+    ``exchange(h)`` gives every node's features from the held ones."""
+    dt = torch.promote_types(torch.promote_types(
+        positions.dtype, params["species_embed"].dtype), torch.float32)
 
     # --- edge geometry (this process's edges) ------------------------------
     geo = []
-    for di, n_loc, sl in shards:
-        send, recv = senders[sl], receivers[sl]
+    for di, n_loc, send, recv, mask in edges:
         rvec = (positions[send] - positions[recv]).to(dt)          # (E, 3)
         r = torch.linalg.norm(rvec + 1e-12, dim=-1)
         u = rvec / (r[:, None] + 1e-12)
         sph = real_sph_harm_l2(u)                                  # (E, 9)
         rbf = bessel_basis(r, cfg.n_rbf, cfg.r_cut)                # (E, n_rbf)
-        if edge_mask is not None:
-            rbf = rbf * edge_mask[sl, None].to(dt)
+        if mask is not None:
+            rbf = rbf * mask[:, None].to(dt)
         geo.append((di, n_loc, rbf, sph, send, recv - di * n_loc))
 
     # --- initial node features (l=0 only), the nodes this process holds --
     # the embedding rows by a one-hot product: its backward is a product
     # too, where a gather's would scatter 16 rows from every node
     emb = params["species_embed"]
-    h0 = (species[lo:hi, None] == torch.arange(
+    h0 = (species[:, None] == torch.arange(
         emb.shape[0], device=species.device)).to(emb.dtype) @ emb
     if node_feat is not None and "feat_proj" in params:
-        h0 = h0 + node_feat[lo:hi] @ params["feat_proj"]
+        h0 = h0 + node_feat @ params["feat_proj"]
     h = F.pad(h0.to(dt)[..., None], (0, M_TOT - 1))               # (n, C, M)
 
     def a_features(layer, h_):
-        if mesh is None:
-            (_, _, rbf_, sph_, send_, recv_), = geo
+        if exchange is None:
+            (_, n_out, rbf_, sph_, send_, recv_), = geo
             return _scatter_messages(layer, cfg, h_, rbf_, sph_, send_,
-                                     recv_, n, ec)
-        if grid.group is None:
-            h_full = h_.to(ex_dtype).to(h_.dtype)
-        else:
-            h_full = AllGather.apply(h_.to(ex_dtype), mesh, peers, 0,
-                                      False).to(h_.dtype)
+                                     recv_, n_out, ec)
+        h_full = exchange(h_)
         return torch.cat([_scatter_messages(layer, cfg, h_full, rbf_, sph_,
                                             send_, recv_, n_loc_, ec)
                           for _, n_loc_, rbf_, sph_, send_, recv_ in geo])
@@ -406,11 +451,60 @@ def mace_fwd(params: dict, cfg: MACEConfig, species: torch.Tensor,
         energy = torch.sum(site_e, dim=0, keepdim=True)
     else:
         energy = site_e.new_zeros((n_graphs,)).index_add_(
-            0, graph_ids[lo:hi].long(), site_e)
+            0, graph_ids.long(), site_e)
     out = {"node_inv": node_inv, "energy": energy}
     if "cls_head" in params:
         out["node_logits"] = node_inv @ params["cls_head"]
-    if mesh is not None and grid.group is not None:
-        out = {k: (Sum if k == "energy" else Concat).apply(
-            v, mesh, peers) for k, v in out.items()}
     return out
+
+
+def _mace_fwd_dtensor(params, cfg, species, positions, senders, receivers,
+                      node_feat, edge_mask, graph_ids, n_graphs, axes,
+                      n_edge_chunks):
+    """``mace_fwd`` over a DeviceMesh (the reference's
+    ``_a_features_sharded`` shard_map): the inputs are DTensors split
+    over dp on their first axis (params replicated).  Each rank runs its
+    dp shard's nodes and edges, every rank's positions gathered for the
+    edge geometry; the exchange all-gathers ``h`` over the dp group
+    (``AllGather``, its backward a reduce-scatter).  The node outputs come
+    back split over dp, the energy summed over it; the gradients of the
+    parameters and of the gathered positions are partial over dp (each
+    shard's nodes and edges add theirs)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dm, dp = axes.mesh, tuple(axes.dp)
+    n, e_total = species.shape[0], senders.shape[0]
+    dp_n = math.prod(dm.size(dm.mesh_dim_names.index(a)) for a in dp)
+    n_loc, _, ec = _split_sizes(n, e_total, dp_n, max(1, n_edge_chunks))
+    di, _ = device_cell(dm, dp, axes.tp)
+
+    def rows(t):
+        if t is None:
+            return None
+        return constrain(t, P(dp, *([None] * (t.ndim - 1)))).to_local()
+
+    # inputs every rank holds whole: each dp shard's edges add to their
+    # gradients, partial over dp
+    partial = mesh_placements(dm, dp, Partial(), Replicate())
+    params = tree_map(lambda t: t.to_local(grad_placements=partial), params)
+    pos_all = constrain(positions, P()).to_local(grad_placements=partial)
+    dpm = axes_mesh(dm, dp)
+    peers, ex_dtype = everyone(dpm), _exchange_dtype(cfg)
+
+    def exchange(h_):
+        return AllGather.apply(h_.to(ex_dtype), dpm, peers, 0,
+                               False).to(h_.dtype)
+
+    edges = [(di, n_loc, rows(senders), rows(receivers), rows(edge_mask))]
+    out = _mace_body(params, cfg, rows(species), pos_all, rows(node_feat),
+                     rows(graph_ids), n_graphs, edges, ec, exchange)
+
+    def back(k, v):
+        if k == "energy":
+            pl = mesh_placements(dm, dp, Partial(), Replicate())
+            shape = tuple(v.shape)
+        else:
+            pl = mesh_placements(dm, dp, Shard(0), Replicate())
+            shape = (n,) + tuple(v.shape[1:])
+        return DTensor.from_local(v, dm, pl, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+    return {k: back(k, v) for k, v in out.items()}

@@ -45,9 +45,12 @@ from torch.nn import functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.collectives import (AllGather, Grid, Sum, SumGrads,
-                                            dequantize, everyone,
-                                            peer_cells, quantize)
-from repro_torch.models.layers import Axes, normal, upcast
+                                            axes_mesh, dequantize,
+                                            device_cell, everyone,
+                                            mesh_placements, peer_cells,
+                                            quantize)
+from repro_torch.models.layers import (Axes, P, constrain, contiguous_stride,
+                                       is_device_mesh, normal, upcast)
 
 
 def init_moe(generator: torch.Generator | None, d_model: int, d_ff: int,
@@ -114,6 +117,28 @@ def _draw(generator, shape: tuple[int, ...], scale: float,
 # ---------------------------------------------------------------------------
 # routing
 # ---------------------------------------------------------------------------
+
+
+def moe_specs(axes: Axes, shared_expert: bool, fsdp: bool = False,
+              expert_fsdp: int = -1) -> dict:
+    """Spec tree of ``init_moe``'s output (the reference's): experts split
+    over tp on the expert axis (expert parallelism), the router
+    replicated.  ``expert_fsdp``: -1 follows ``fsdp``; 0 keeps expert
+    weights tp-split only, 1 also splits their d_in over dp."""
+    tp = axes.tp
+    fs = tuple(axes.dp) if fsdp else None
+    efs = fs if expert_fsdp == -1 else (
+        tuple(axes.dp) if expert_fsdp else None)
+    p = {
+        "router": P(None, None),
+        "w_gate": P(tp, efs, None),
+        "w_up": P(tp, efs, None),
+        "w_down": P(tp, efs, None),
+    }
+    if shared_expert:
+        p["shared"] = {"w_gate": P(fs, tp), "w_up": P(fs, tp),
+                       "w_down": P(tp, fs)}
+    return p
 
 
 def _position_in_expert(expert_ids: torch.Tensor, n_experts: int
@@ -192,10 +217,14 @@ def moe_fwd(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     keep = pos < cap
     slot = torch.where(keep, pos, cap)
     x_rep = torch.repeat_interleave(x, top_k, dim=0)           # (T*k, D)
-    buf = x.new_zeros((n_experts, cap + 1, d)).index_put(
-        (flat_e, slot), x_rep)
 
-    y = _experts(buf, params["w_gate"], params["w_up"], params["w_down"])
+    def _c(a):
+        return a if axes is None else constrain(a, P(axes.tp, None, None))
+
+    buf = _c(_c(x.new_zeros((n_experts, cap + 1, d))).index_put(
+        (flat_e, slot), x_rep))
+
+    y = _c(_experts(buf, params["w_gate"], params["w_up"], params["w_down"]))
 
     # ---- combine: the drop slot's rows never reach the output
     out_rep = y[flat_e, slot] * gate.reshape(-1, 1).to(y.dtype)
@@ -355,6 +384,11 @@ def moe_fwd_sharded(params: dict, x: torch.Tensor, *, n_experts: int,
     bucket), runs its experts at a capacity per (dp shard, expert), and
     the tp cells' partial outputs are summed."""
     e_fsdp = fsdp if expert_fsdp == -1 else bool(expert_fsdp)
+    if is_device_mesh(axes.mesh):
+        return _moe_fwd_sharded_dtensor(
+            params, x, n_experts=n_experts, top_k=top_k,
+            capacity_factor=capacity_factor, axes=axes, e_fsdp=e_fsdp,
+            gather_quant=gather_quant)
     t, d = x.shape
     grid = Grid(axes.mesh, axes.dp, axes.tp)
     dp_n, tp_n = grid.dp_n, grid.tp_n
@@ -425,13 +459,14 @@ def moe_fwd_a2a(params: dict, x: torch.Tensor, *, n_experts: int,
     tp cell (capacity per destination), exchanges buckets with one
     all-to-all over its dp row, runs its experts (capacity per expert),
     and a second all-to-all returns the outputs to the tokens' owners."""
-    t, d = x.shape
+    if is_device_mesh(axes.mesh):
+        return _moe_fwd_a2a_dtensor(
+            params, x, n_experts=n_experts, capacity_factor=capacity_factor,
+            axes=axes, fsdp=fsdp, gather_quant=gather_quant)
     grid = Grid(axes.mesh, axes.dp, axes.tp)
-    dp_n, tp_n = grid.dp_n, grid.tp_n
-    t_cell = t // (dp_n * tp_n)
-    e_local = n_experts // tp_n
-    cap_d = int(max(capacity_factor * t_cell / tp_n, 4))     # per-dest slots
-    cap_e = int(max(capacity_factor * t_cell / e_local, 4))  # per-expert rows
+    tp_n = grid.tp_n
+    t_cell, e_local, cap_d, cap_e = _a2a_sizes(
+        x.shape[0], grid.dp_n, tp_n, n_experts, capacity_factor)
     xs, router, wg, wu, wd = _replicated(
         grid, x, params["router"], params["w_gate"], params["w_up"],
         params["w_down"])
@@ -440,21 +475,10 @@ def moe_fwd_a2a(params: dict, x: torch.Tensor, *, n_experts: int,
     state, sends, auxes = {}, {}, []
     for di, ti in grid.local:
         c = di * tp_n + ti
-        x_loc = xs[c * t_cell:(c + 1) * t_cell]
-        probs, _, sel = _route(x_loc, router, 1)
-        sel = sel[:, 0]                                       # (Tc,)
-        auxes.append(_aux(probs, sel, n_experts))
-        dest = torch.div(sel, e_local, rounding_mode="floor")
-        pos = _position_in_expert(dest, tp_n)
-        keep = pos < cap_d
-        slot = torch.where(keep, pos, cap_d)
-        row = torch.where(keep, dest, tp_n)
-        send = x_loc.new_zeros((tp_n + 1, cap_d + 1, d)).index_put(
-            (row, slot), x_loc)[:tp_n, :cap_d]
-        send_e = torch.full((tp_n + 1, cap_d + 1), e_local, dtype=torch.int32,
-                            device=x.device).index_put(
-            (row, slot), (sel % e_local).to(torch.int32))[:tp_n, :cap_d]
-        state[(di, ti)] = (keep, row, slot)
+        send, send_e, state[(di, ti)], aux = _a2a_buckets(
+            xs[c * t_cell:(c + 1) * t_cell], router, n_experts=n_experts,
+            e_local=e_local, tp_n=tp_n, cap_d=cap_d)
+        auxes.append(aux)
         sends[(di, ti)] = (send, send_e)
 
     # 2. one all-to-all each way over the dp row
@@ -463,30 +487,75 @@ def moe_fwd_a2a(params: dict, x: torch.Tensor, *, n_experts: int,
     for (di, ti), (recv, recv_e) in recvs.items():
         ws = [_expert_weights(grid, w, di, ti, e_local, fsdp, gather_quant)
               for w in (wg, wu, wd)]
-        rflat = recv.reshape(tp_n * cap_d, d)
-        eflat = recv_e.reshape(tp_n * cap_d)                  # e_local = pad
-        pos_e = _position_in_expert(eflat, e_local + 1)
-        keep_e = (eflat < e_local) & (pos_e < cap_e)
-        erow = torch.where(keep_e, eflat.long(), e_local)
-        eslot = torch.where(keep_e, pos_e, cap_e)
-        buf = rflat.new_zeros((e_local + 1, cap_e + 1, d)).index_put(
-            (erow, eslot), rflat)[:e_local, :cap_e]
-        y = _experts(buf, *ws)                                # (E_loc,cap_e,D)
-        y_slots = torch.where(keep_e[:, None], _pad_row_slot(y)[erow, eslot],
-                              0.0)
-        backs[(di, ti)] = (y_slots.reshape(tp_n, cap_d, d),)
+        backs[(di, ti)] = (_a2a_experts(recv, recv_e, ws, e_local=e_local,
+                                        cap_e=cap_e),)
     backs = _all_to_all(grid, backs)
 
     # 3. the outputs back at their tokens (top-1: the gate is 1)
-    outs = {}
-    for k, (back,) in backs.items():
-        keep, row, slot = state[k]
-        out = _pad_row_slot(back)[row, slot]
-        outs[k[0] * tp_n + k[1]] = torch.where(keep[:, None], out, 0.0)
-    out = _combine(grid, outs, dp_n * tp_n).to(x.dtype)
+    outs = {k[0] * tp_n + k[1]: _a2a_unbucket(back, *state[k])
+            for k, (back,) in backs.items()}
+    out = _combine(grid, outs, grid.dp_n * tp_n).to(x.dtype)
     if "shared" in params:
         out = out + _ffn(params["shared"], x)
     return out, _mean_aux(grid, auxes)
+
+
+def _a2a_sizes(t: int, dp_n: int, tp_n: int, n_experts: int,
+               capacity_factor: float) -> tuple[int, int, int, int]:
+    """(tokens a cell, experts a tp cell, slots a destination, rows an
+    expert) of ``moe_fwd_a2a``."""
+    t_cell = t // (dp_n * tp_n)
+    e_local = n_experts // tp_n
+    cap_d = int(max(capacity_factor * t_cell / tp_n, 4))
+    cap_e = int(max(capacity_factor * t_cell / e_local, 4))
+    return t_cell, e_local, cap_d, cap_e
+
+
+def _a2a_buckets(x_loc, router, *, n_experts: int, e_local: int, tp_n: int,
+                 cap_d: int):
+    """One cell's tokens routed top-1 and bucketed by destination tp cell:
+    (rows (tp, cap_d, D), their local expert ids (tp, cap_d), ``e_local``
+    in an empty slot, (keep, row, slot) that put the outputs back, aux)."""
+    d = x_loc.shape[1]
+    probs, _, sel = _route(x_loc, router, 1)
+    sel = sel[:, 0]                                           # (Tc,)
+    aux = _aux(probs, sel, n_experts)
+    dest = torch.div(sel, e_local, rounding_mode="floor")
+    pos = _position_in_expert(dest, tp_n)
+    keep = pos < cap_d
+    slot = torch.where(keep, pos, cap_d)
+    row = torch.where(keep, dest, tp_n)
+    send = x_loc.new_zeros((tp_n + 1, cap_d + 1, d)).index_put(
+        (row, slot), x_loc)[:tp_n, :cap_d]
+    send_e = torch.full((tp_n + 1, cap_d + 1), e_local, dtype=torch.int32,
+                        device=x_loc.device).index_put(
+        (row, slot), (sel % e_local).to(torch.int32))[:tp_n, :cap_d]
+    return send, send_e, (keep, row, slot), aux
+
+
+def _a2a_experts(recv, recv_e, ws, *, e_local: int, cap_e: int):
+    """The received rows (tp, cap_d, D) through this cell's experts
+    (``cap_e`` rows an expert): their outputs, zero where dropped or
+    empty."""
+    tp_n, cap_d, d = recv.shape
+    rflat = recv.reshape(tp_n * cap_d, d)
+    eflat = recv_e.reshape(tp_n * cap_d)                      # e_local = pad
+    pos_e = _position_in_expert(eflat, e_local + 1)
+    keep_e = (eflat < e_local) & (pos_e < cap_e)
+    erow = torch.where(keep_e, eflat.long(), e_local)
+    eslot = torch.where(keep_e, pos_e, cap_e)
+    buf = rflat.new_zeros((e_local + 1, cap_e + 1, d)).index_put(
+        (erow, eslot), rflat)[:e_local, :cap_e]
+    y = _experts(buf, *ws)                                    # (E_loc,cap_e,D)
+    y_slots = torch.where(keep_e[:, None], _pad_row_slot(y)[erow, eslot],
+                          0.0)
+    return y_slots.reshape(tp_n, cap_d, d)
+
+
+def _a2a_unbucket(back, keep, row, slot):
+    """The returned outputs (tp, cap_d, D) at their tokens (top-1: the
+    gate is 1), zero for a dropped token."""
+    return torch.where(keep[:, None], _pad_row_slot(back)[row, slot], 0.0)
 
 
 def _all_to_all(grid: Grid, sends: dict) -> dict:
@@ -500,3 +569,113 @@ def _all_to_all(grid: Grid, sends: dict) -> dict:
     peers = peer_cells(grid.mesh, grid.mesh.rank, (grid.tp,))
     return {k: tuple(_AllToAll.apply(t, grid.mesh, peers) for t in ts)
             for k, ts in sends.items()}
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel paths on a DeviceMesh: the reference's shard_maps
+# ---------------------------------------------------------------------------
+#
+# The tokens and weights are DTensors.  Each rank takes its local shards
+# (``to_local``, naming the placement of each one's gradient: partial over
+# the axes whose cells share an input and add to its gradient), runs its
+# (dp, tp) cell as the group-less path runs it, and hands its outputs back
+# as DTensors whose pending sums (the psum over tp, the aux's mean) DTensor
+# reduces.  The fsdp weight gathers are DTensor redistributions, or the
+# int8 ``AllGather`` over the dp group under ``gather_quant``; the
+# all-to-alls are ``_AllToAll`` over the tp group.
+
+
+def _dt(t, dm, pl, shape):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, dm, pl, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def _local_experts(w, axes: Axes, efs, gather_quant: bool):
+    """This cell's experts of the DTensor ``w`` (E, d_in, d_out), split
+    over tp on E (and over dp on d_in under ``efs``): (E / tp, d_in,
+    d_out), gathered over dp where split there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm = axes.mesh
+    w = constrain(w, P(axes.tp, efs, None))
+    if efs is None:
+        return w.to_local(grad_placements=mesh_placements(
+            dm, axes.dp, Partial(), Shard(0)))
+    if gather_quant:
+        dpm = axes_mesh(dm, axes.dp)
+        return AllGather.apply(w.to_local(), dpm, everyone(dpm), 1, True)
+    return w.redistribute(dm, mesh_placements(dm, axes.dp, Replicate(),
+                                              Shard(0))).to_local(
+        grad_placements=mesh_placements(dm, axes.dp, Partial(), Shard(0)))
+
+
+def _mesh_aux(aux: torch.Tensor, dm) -> torch.Tensor:
+    """The mean over every cell of each cell's aux."""
+    from torch.distributed.tensor import Partial
+    n = math.prod(dm.shape)
+    return _dt(aux, dm, [Partial()] * dm.ndim, ()) / n
+
+
+def _moe_fwd_sharded_dtensor(params, x, *, n_experts, top_k,
+                             capacity_factor, axes: Axes, e_fsdp: bool,
+                             gather_quant: bool):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm, dp = axes.mesh, tuple(axes.dp)
+    t, d = x.shape
+    dp_n = math.prod(dm.size(dm.mesh_dim_names.index(a)) for a in dp)
+    tp_n = dm.size(dm.mesh_dim_names.index(axes.tp))
+    t_local = t // dp_n
+    e_local = n_experts // tp_n
+    cap = int(max(capacity_factor * top_k * t_local / n_experts, 4))
+    _, ti = device_cell(dm, dp, axes.tp)
+    x = constrain(x, P(dp, None))
+    x_loc = x.to_local(grad_placements=mesh_placements(
+        dm, dp, Shard(0), Partial()))
+    router = constrain(params["router"], P(None, None)).to_local(
+        grad_placements=[Partial()] * dm.ndim)
+    efs = dp if e_fsdp else None
+    ws = [_local_experts(params[k], axes, efs, gather_quant)
+          for k in ("w_gate", "w_up", "w_down")]
+    part, aux = _sharded_cell(x_loc, router, *ws, e0=ti * e_local,
+                              e_local=e_local, n_experts=n_experts,
+                              top_k=top_k, cap=cap)
+    out = _dt(part, dm, mesh_placements(dm, dp, Shard(0), Partial()),
+              tuple(x.shape))
+    out = out.redistribute(dm, mesh_placements(dm, dp, Shard(0),
+                                               Replicate()))
+    out = out.to(x.dtype)
+    if "shared" in params:
+        out = out + _ffn(params["shared"], x)
+    return out, _mesh_aux(aux, dm)
+
+
+def _moe_fwd_a2a_dtensor(params, x, *, n_experts, capacity_factor,
+                         axes: Axes, fsdp: bool, gather_quant: bool):
+    from torch.distributed.tensor import Partial
+    dm, dp = axes.mesh, tuple(axes.dp)
+    dp_n = math.prod(dm.size(dm.mesh_dim_names.index(a)) for a in dp)
+    tp_n = dm.size(dm.mesh_dim_names.index(axes.tp))
+    _, e_local, cap_d, cap_e = _a2a_sizes(x.shape[0], dp_n, tp_n, n_experts,
+                                          capacity_factor)
+    x = constrain(x, P(dp + (axes.tp,), None))
+    x_loc = x.to_local(grad_placements=x.placements)
+    router = constrain(params["router"], P(None, None)).to_local(
+        grad_placements=[Partial()] * dm.ndim)
+    ws = [_local_experts(params[k], axes, dp if fsdp else None,
+                         gather_quant)
+          for k in ("w_gate", "w_up", "w_down")]
+    tpm = axes_mesh(dm, (axes.tp,))
+    peers = everyone(tpm)
+
+    send, send_e, state, aux = _a2a_buckets(
+        x_loc, router, n_experts=n_experts, e_local=e_local, tp_n=tp_n,
+        cap_d=cap_d)
+    recv = _AllToAll.apply(send, tpm, peers)
+    recv_e = _AllToAll.apply(send_e, tpm, peers)
+    back = _AllToAll.apply(_a2a_experts(recv, recv_e, ws, e_local=e_local,
+                                        cap_e=cap_e), tpm, peers)
+    out = _dt(_a2a_unbucket(back, *state), dm, x.placements,
+              tuple(x.shape)).to(x.dtype)
+    if "shared" in params:
+        out = out + _ffn(params["shared"], x)
+    return out, _mesh_aux(aux, dm)

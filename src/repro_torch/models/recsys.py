@@ -18,9 +18,19 @@ clamped, as the reference's scatter does.  ``embedding_bag`` is kernel H
 (``kernels/ops.embedding_bag``); H reads id -1 as "no row", so ids pass
 through the same rule first, and its backward is plain PyTorch.
 
-The reference's ``*_specs`` and ``table_specs`` place the tables over a
-TPU mesh's axes; one process has no counterpart, and the port leaves them
-out.
+The reference's ``*_specs`` and ``table_specs`` give the spec trees
+(``models/layers.P``) that place the models over a mesh: tables of 16,384
+rows or more row-split over tp, the widest MLP layers' columns over tp.
+On a DTensor table (a cell on a ``DeviceMesh``) ``take_rows`` and
+``embedding_bag`` are vocab-parallel, written by hand since DTensor has
+no rule for the port's own ops (``_sharded_rows``): the ids are gathered
+over the mesh axes the table's rows are split over, each rank takes the
+ids in its rows through kernel H over its shard with the ids rebased (an
+id outside the shard is H's "no row", -1, and adds nothing; a gather is a
+bag of one row at weight 1), and the partial rows are summed over those
+axes; the backward is the transpose, each rank scattering the cotangent
+into its own rows.  Ids clamp as ``take_rows``'s rule says, on the
+table's global row count.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ from torch import nn
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, normal
+from repro_torch.models.layers import (P, dense_init, is_dtensor, normal,
+                                       row_split_gather)
 from repro_torch.tree import module_tree
 
 F32 = torch.float32
@@ -83,6 +94,16 @@ def param_tree(model: nn.Module) -> dict:
     """The reference's params tree of ``model``: nested dicts (and lists
     where the names are 0, 1, ...) of its parameters."""
     return module_tree(model)
+
+
+def _mlp_specs(dims: tuple[int, ...], shard_wide: Optional[str]) -> list:
+    """Shard the widest layers' columns (512 or more) over ``shard_wide``;
+    keep small ones replicated."""
+    out = []
+    for i in range(len(dims) - 1):
+        big = shard_wide is not None and dims[i + 1] >= 512
+        out.append({"w": P(None, shard_wide if big else None), "b": P(None)})
+    return out
 
 
 def _mlp_init(generator, dims: tuple[int, ...], device: torch.device) -> list:
@@ -142,7 +163,10 @@ class _TakeRows(torch.autograd.Function):
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` as the reference reads it (``gather_index``) and
     differentiates it: the table's gradient takes no part from an id the
-    forward clamped (``gather_kept``)."""
+    forward clamped (``gather_kept``).  A DTensor table takes the
+    vocab-parallel path (``_sharded_rows``)."""
+    if is_dtensor(table):
+        return _sharded_rows(table, ids, None)
     n = table.shape[0]
     if not (table.requires_grad and torch.is_grad_enabled()):
         return table[gather_index(ids, n)]
@@ -180,11 +204,96 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     """take + weighted segment-sum bag. ids (B, H) -> (B, D), kernel H
     (weights of 1 where none are given), differentiable in the table and
     the weights under ``take_rows``'s rule."""
+    if is_dtensor(table):
+        return _sharded_rows(table, ids, weights, bag=True)
     n = table.shape[0]
     if weights is None:
         weights = torch.ones(ids.shape, dtype=F32, device=ids.device)
     return _Bag.apply(table.float(), gather_index(ids, n),
                       gather_kept(ids, n), weights.float())
+
+
+class _ShardRows(torch.autograd.Function):
+    """Kernel H over this rank's rows of a row-split table: ``idx`` (B,
+    H) local rows, -1 where an id is not in the shard (H's "no row");
+    ``weights`` (B, H); out (B, D).  Backward: the cotangent times the
+    weights scattered into the rows where ``kept`` (in the shard and not
+    clamped)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, kept, weights):
+        ctx.save_for_backward(idx.clamp(min=0), kept, weights)
+        ctx.n_rows = table.shape[0]
+        return ops.embedding_bag(idx.int(), weights.contiguous(),
+                                 table.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, kept, weights = ctx.saved_tensors
+        d_table = _scatter_rows(ctx.n_rows, idx, kept,
+                                weights[..., None] * g[:, None, :])
+        return d_table, None, None, None
+
+
+def _sharded_rows(table, ids, weights, bag: bool = False):
+    """The vocab-parallel ``take_rows`` (``bag`` False: (*ids.shape, D))
+    or ``embedding_bag`` ((B, D)) of the DTensor ``table``: kernel H over
+    this rank's rows (``row_split_gather``)."""
+    if weights is not None and weights.requires_grad:
+        raise NotImplementedError("the sharded bag takes no gradient in "
+                                  "its weights")
+    n = table.shape[0]
+
+    def local(tab, lo, ids_loc, w_loc):
+        idx = gather_index(ids_loc, n)
+        mine = (idx >= lo) & (idx < lo + tab.shape[0])
+        kept = gather_kept(ids_loc, n) & mine
+        local_idx = torch.where(mine, idx - lo, -1)
+        w = mine.to(F32) if w_loc is None else w_loc.float() * mine
+        if bag:
+            return _ShardRows.apply(tab.float(), local_idx, kept, w)
+        flat = _ShardRows.apply(tab.float(), local_idx.reshape(-1, 1),
+                                kept.reshape(-1, 1), w.reshape(-1, 1))
+        return flat.reshape(tuple(ids_loc.shape) + (flat.shape[-1],))
+
+    return row_split_gather(table, ids, local, weights, bag)
+
+
+def table_specs(cfg: RecsysConfig, axes) -> list:
+    """Row-shard big tables over tp; replicate small ones (< 16k rows)."""
+    return [P(axes.tp, None) if v >= 16384 else P(None, None)
+            for v in cfg.table_sizes]
+
+
+def dlrm_specs(cfg: RecsysConfig, axes) -> dict:
+    return {
+        "tables": table_specs(cfg, axes),
+        "bot_mlp": _mlp_specs((cfg.n_dense,) + cfg.bot_mlp, axes.tp),
+        "top_mlp": _mlp_specs((_dlrm_top_in(cfg),) + cfg.top_mlp, axes.tp),
+    }
+
+
+def autoint_specs(cfg: RecsysConfig, axes) -> dict:
+    layer = {"wq": P(None, None), "wk": P(None, None), "wv": P(None, None),
+             "wo": P(None, None), "res": P(None, None)}
+    return {"tables": table_specs(cfg, axes),
+            "attn": [dict(layer) for _ in range(cfg.n_attn_layers)],
+            "out_w": P(None, None)}
+
+
+def widedeep_specs(cfg: RecsysConfig, axes) -> dict:
+    return {
+        "tables": table_specs(cfg, axes),
+        "wide_tables": table_specs(cfg, axes),
+        "deep_mlp": _mlp_specs((cfg.n_sparse * cfg.embed_dim,) + cfg.mlp
+                               + (1,), axes.tp),
+    }
+
+
+def mind_specs(cfg: RecsysConfig, axes) -> dict:
+    return {"item_embed": P(axes.tp, None), "bilinear": P(None, None),
+            "out_mlp": _mlp_specs((cfg.embed_dim, 4 * cfg.embed_dim,
+                                   cfg.embed_dim), None)}
 
 
 def init_tables(generator, cfg: RecsysConfig, device=None) -> list:

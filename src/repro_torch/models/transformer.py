@@ -18,12 +18,17 @@ stack) and runs the layers in a Python loop, the reference's ``unroll``
 branch; a ``dense_moe`` group's leaves are stacked as ``(n_layers // 2,
 ...)`` under ``layers/dense`` and ``layers/moe``.  The functions keep the
 reference's names and arguments, with the model (or its params tree) in
-the place of the params dict.  ``axes`` constrains nothing (one process
-has no sharding to constrain); an ``axes`` with a mesh routes an MoE
-block's tokens as the reference's does: ``models/moe.moe_fwd_a2a`` under
-``cfg.moe_a2a`` at top-1 when the tokens divide dp x tp, else
-``moe_fwd_sharded`` when they divide dp, else the local ``moe_fwd`` (the
-LM cells pass no mesh, so they run ``moe_fwd``).
+the place of the params dict.  ``lm_param_specs`` and ``cache_specs`` are
+the reference's spec trees (``models/layers.P``); ``axes`` constrains the
+residual stream (``_act_spec``, degrading where B or S does not divide)
+and the logits where the reference does, which on DTensors (a
+``DeviceMesh`` in ``axes``) redistributes them and on plain tensors does
+nothing.  An ``axes`` with a mesh routes an MoE block's tokens as the
+reference's does: ``models/moe.moe_fwd_a2a`` under ``cfg.moe_a2a`` at
+top-1 when the tokens divide dp x tp, else ``moe_fwd_sharded`` when they
+divide dp, else the local ``moe_fwd``; the LM cells pass their mesh on a
+``DeviceMesh`` and none on the one-card ``Mesh((1, 1))``, where they run
+``moe_fwd``.
 
 Numerics follow the reference: each block's parameters are cast to the
 compute dtype (``_cast``), norms compute in f32, attention scores are f32
@@ -54,8 +59,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.layers import (Axes, dtype_of, normal, rms_norm,
-                                       softmax_cross_entropy, upcast)
+from repro_torch.models.layers import (Axes, P, constrain, dtype_of,
+                                       grad_whole, is_dtensor, label_logits,
+                                       logsumexp_last, mesh_sizes,
+                                       normal, rms_norm, row_split_gather,
+                                       softmax_cross_entropy, upcast,
+                                       whole)
 from repro_torch.tree import flatten_with_names, module_tree, tree_map, unflatten
 
 F32 = torch.float32
@@ -67,6 +76,12 @@ def structure(cfg: LMConfig) -> str:
     if cfg.moe:
         return "moe"
     return "dense"
+
+
+def _constrain(x, axes: Optional[Axes], spec: P):
+    if axes is None:
+        return x
+    return constrain(x, spec)
 
 
 def _device(device) -> torch.device:
@@ -183,6 +198,68 @@ def init_lm(generator: torch.Generator | None, cfg: LMConfig,
     return LM(cfg, tree)
 
 
+def lm_param_specs(cfg: LMConfig, axes: Axes) -> dict:
+    """Spec tree matching ``init_lm``'s tree (the reference's): each layer
+    leaf's spec behind its stacked layer axis, the embedding split over
+    its vocabulary (Megatron-style), the unembedding over its columns."""
+    tp = axes.tp
+    fs = tuple(axes.dp) if cfg.fsdp else None
+    a_specs = attn_mod.attention_specs(axes, cfg.attn_shard, cfg.fsdp)
+    dense_block = {
+        "ln1": P(None), "attn": a_specs, "ln2": P(None),
+        "ffn": {"w_gate": P(fs, tp), "w_up": P(fs, tp), "w_down": P(tp, fs)},
+    }
+    moe_block = {
+        "ln1": P(None), "attn": a_specs, "ln2": P(None),
+        "moe": moe_mod.moe_specs(axes, cfg.shared_expert, cfg.fsdp,
+                                 cfg.expert_fsdp),
+    }
+
+    def stack(spec_tree):
+        return tree_map(lambda s: P(None, *s), spec_tree)
+
+    struct = structure(cfg)
+    if struct == "dense":
+        layers = stack(dense_block)
+    elif struct == "moe":
+        layers = stack(moe_block)
+    else:
+        layers = {"dense": stack(dense_block), "moe": stack(moe_block)}
+    specs = {
+        "embed": P(tp, None),           # vocab-sharded (Megatron-style)
+        "layers": layers,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(None, tp)
+    return specs
+
+
+def _act_spec(cfg: LMConfig, axes: Optional[Axes],
+              x: Optional[torch.Tensor] = None) -> P:
+    """Residual-stream sharding, degrading gracefully for non-divisible
+    dims (decode has S=1; long-context decode has B=1), as the
+    reference's."""
+    if axes is None:
+        return P()
+    dp = tuple(axes.dp)
+    bspec, sspec = dp, None
+    if x is not None and axes.mesh is not None:
+        sizes = mesh_sizes(axes.mesh)
+        dpn = math.prod(sizes[a] for a in dp)
+        if x.shape[0] % dpn:
+            bspec = None
+        if cfg.attn_shard == "sequence" and x.shape[1] % sizes[axes.tp] == 0:
+            sspec = axes.tp
+    elif cfg.attn_shard == "sequence":
+        sspec = axes.tp
+    return P(bspec, sspec, None)
+
+
+def _logit_spec(axes: Axes) -> P:
+    return P(tuple(axes.dp), None, axes.tp)
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -195,6 +272,7 @@ def _cast(p, dtype):
 
 
 def _ffn(p, x):
+    x = whole(x, 1)          # a sequence-parallel residual, gathered
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
@@ -212,9 +290,10 @@ def _dense_block_fwd(p, x, positions, window, cfg: LMConfig,
     a, new_cache = attn_mod.attention_fwd(
         p["attn"], h, positions, window, softcap=cfg.logit_softcap,
         cache=cache, cache_pos=cache_pos, **_attn_kwargs(cfg))
-    x = x + a
+    x = _constrain(x + grad_whole(a, 1), axes, _act_spec(cfg, axes, x))
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _ffn(p["ffn"], h)
+    x = _constrain(x + grad_whole(_ffn(p["ffn"], h), 1), axes,
+                   _act_spec(cfg, axes, x))
     return x, new_cache
 
 
@@ -225,13 +304,14 @@ def _moe_block_fwd(p, x, positions, window, cfg: LMConfig,
     a, new_cache = attn_mod.attention_fwd(
         p["attn"], h, positions, window, softcap=cfg.logit_softcap,
         cache=cache, cache_pos=cache_pos, **_attn_kwargs(cfg))
-    x = x + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = _constrain(x + grad_whole(a, 1), axes, _act_spec(cfg, axes, x))
+    h = whole(rms_norm(x, p["ln2"], cfg.norm_eps), 1)
     b, s, d = h.shape
     t_tokens = b * s
     mesh = None if axes is None else axes.mesh
-    dpn = 1 if mesh is None else math.prod(mesh.shape[a_] for a_ in axes.dp)
-    tpn = 1 if mesh is None else mesh.shape[axes.tp]
+    sizes = {} if mesh is None else mesh_sizes(mesh)
+    dpn = 1 if mesh is None else math.prod(sizes[a_] for a_ in axes.dp)
+    tpn = 1 if mesh is None else sizes[axes.tp]
     if mesh is not None and cfg.moe_a2a and cfg.top_k == 1 \
             and t_tokens % (dpn * tpn) == 0:
         # top-1 all_to_all dispatch: tokens split over dp x tp
@@ -250,7 +330,8 @@ def _moe_block_fwd(p, x, positions, window, cfg: LMConfig,
         out, aux = moe_mod.moe_fwd(
             p["moe"], h.reshape(b * s, d), n_experts=cfg.n_experts,
             top_k=cfg.top_k, capacity_factor=cfg.capacity_factor, axes=axes)
-    x = x + out.reshape(b, s, d)
+    x = _constrain(x + grad_whole(out.reshape(b, s, d), 1), axes,
+                   _act_spec(cfg, axes, x))
     return x, new_cache, aux
 
 
@@ -302,9 +383,19 @@ def _unembed(params: dict, cfg: LMConfig) -> torch.Tensor:
 def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig
            ) -> torch.Tensor:
     """The tokens' embedding rows in the compute dtype (``nn.Embedding``'s
-    gather: its backward sums each token's rows)."""
-    return F.embedding(tokens.long(), params["embed"]).to(
-        dtype_of(cfg.compute_dtype))
+    gather: its backward sums each token's rows; over a vocabulary split
+    on a DeviceMesh, vocab-parallel: each rank's rows, summed)."""
+    table = params["embed"]
+    if is_dtensor(table):
+        def local(tab, lo, ids, _):
+            idx = ids.long() - lo
+            mine = (idx >= 0) & (idx < tab.shape[0])
+            rows = F.embedding(torch.where(mine, idx, 0), tab)
+            return torch.where(mine[..., None], rows, 0)
+        rows = row_split_gather(table, tokens, local)
+    else:
+        rows = F.embedding(tokens.long(), table)
+    return rows.to(dtype_of(cfg.compute_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +408,9 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig,
     """tokens (B, S) -> (logits (B, S, Vpad) f32, aux_loss scalar)."""
     p = _tree(params)
     x, aux = forward_hidden(p, tokens, cfg, axes)
-    logits = upcast(x @ _unembed(p, cfg))
+    logits = upcast(whole(x, 1) @ _unembed(p, cfg))
+    if axes is not None:
+        logits = constrain(logits, _logit_spec(axes))
     return logits, aux
 
 
@@ -327,6 +420,7 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: LMConfig,
     """Like forward() but stops before the unembedding: (hidden, aux)."""
     p = _tree(params)
     x = _embed(p, tokens, cfg)
+    x = _constrain(x, axes, _act_spec(cfg, axes, x))
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -360,10 +454,9 @@ def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
 
     def body(xc, lc):
         logits = upcast(xc @ unembed) + neg
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.take_along_dim(logits, lc.long()[..., None],
-                                  dim=-1)[..., 0]
-        return torch.sum(lse - ll)
+        if axes is not None:
+            logits = constrain(logits, _logit_spec(axes))
+        return torch.sum(logsumexp_last(logits) - label_logits(logits, lc))
 
     remat = torch.is_grad_enabled()
     total = torch.zeros((), dtype=F32, device=x.device)
@@ -382,7 +475,8 @@ def loss_fn(params, batch: dict, cfg: LMConfig,
     p = _tree(params)
     if logit_chunk:
         x, aux = forward_hidden(p, batch["tokens"], cfg, axes)
-        ce = chunked_cross_entropy(x, _unembed(p, cfg), batch["labels"],
+        ce = chunked_cross_entropy(whole(x, 1), _unembed(p, cfg),
+                                   batch["labels"],
                                    cfg.vocab_size, logit_chunk, axes,
                                    unroll=cfg.unroll)
         loss = ce + aux_weight * aux
@@ -415,6 +509,13 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int,
                    torch.zeros(shape, dtype=dtype, device=dev))
 
 
+def cache_specs(cfg: LMConfig, axes: Axes) -> KVCache:
+    """KV cache sharded over sequence (tp): decode reads dominate;
+    splitting S over tp gives each card 1/tp of the cache-read bytes."""
+    spec = P(None, tuple(axes.dp), axes.tp, None, None)
+    return KVCache(spec, spec)
+
+
 def decode_step(params, cache: KVCache, tokens: torch.Tensor,
                 pos: torch.Tensor | int, cfg: LMConfig,
                 axes: Optional[Axes] = None, last_only: bool = False
@@ -436,6 +537,6 @@ def decode_step(params, cache: KVCache, tokens: torch.Tensor,
         x, _ = _block(cfg, p_i, x, positions, w, axes, cache, pos, i)
     if last_only:
         x = x[:, -1:, :]
-    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    x = whole(rms_norm(x, p["final_norm"], cfg.norm_eps), 1)
     logits = upcast(x @ _unembed(p, cfg))
     return logits, cache

@@ -1,31 +1,50 @@
-"""Roofline terms from the one-card dry run's records (port of
+"""Roofline terms from the dry run's records (port of
 ``repro/roofline.py``).
 
-NVIDIA H100 SXM constants (one card):
+NVIDIA H100 SXM constants (a card):
   peak dense bf16 compute:  989 TFLOP/s
   peak fp32 compute:         67 TFLOP/s (TF32 off, as the port's products
                                          run)
   HBM3 bandwidth:          3.35 TB/s
   HBM3 capacity:             80 GB
-  NVLink (per direction):   450 GB/s
+  NVLink (per direction):   450 GB/s, between the 8 cards of a node
+  NDR InfiniBand:            50 GB/s a card (400 Gb/s), between nodes
 
-Terms (seconds, one card; ``launch/dryrun.py`` counts the whole step):
+The production meshes are 256 and 512 cards of 8-card nodes: (data=16,
+model=16) and (pod=2, data=16, model=16), rank r at the row-major
+coordinate r, so a node holds 8 consecutive ranks, half of one ``model``
+row.  Both axes of 16 (and ``pod``) then cross nodes, and a collective
+over any of them runs at the inter-node rate: the collective term of a
+mesh record uses ``INTERNODE_BW``, of a record on one node (at most 8
+devices) ``NVLINK_BW``.
+
+Terms (seconds; ``launch/dryrun.py`` counts the whole step, on a mesh
+what its rank 0 runs):
   compute_s    = counted flops / the peak of the cell's ``compute_dtype``
-  memory_s     = (argument + output bytes) / HBM bandwidth.  The ``meta``
-                 device keeps no temporaries, so there is no temp peak:
-                 this is the least traffic of the step's inputs and
-                 outputs, and the card's ``torch.cuda.max_memory_allocated``
-                 is what measures the peak.
-  collective_s = collective bytes / NVLink (0: one card has none)
+  memory_s     = (argument + output bytes) / HBM bandwidth: the least
+                 traffic of the step's inputs and outputs (the
+                 temporaries' traffic is not counted).
+  fits_hbm     = a mesh record's ``peak_bytes`` (the arguments and the
+                 most storage live at once, ``dryrun.RankCounter``) under
+                 80 GB; a one-card record has no peak, and only its
+                 arguments are held against 80 GB.  On the card
+                 ``torch.cuda.max_memory_allocated`` measures the peak.
+  collective_s = collective bytes (the results of a rank's collectives,
+                 as the reference's ``collective_bytes`` counts them) /
+                 the interconnect's rate (0 on one card, which has none)
 
-MODEL_FLOPS is the analytic useful work of ``launch/steps`` meta;
-model_flops_ratio = MODEL_FLOPS / counted flops catches recomputation and
-padded work (remat, full-square attention, an MoE's cap + 1 slots);
-roofline_fraction = ideal_time / bound, where ideal_time =
-max(MODEL_FLOPS / peak, MODEL_BYTES / HBM) and bound = max(three terms).
+MODEL_FLOPS is the analytic useful work of ``launch/steps`` meta, and
+MODEL_BYTES (``analytic_model_bytes``) its least traffic, both of the
+whole step: ideal_time = max(MODEL_FLOPS / (n_devices x peak),
+MODEL_BYTES / (n_devices x HBM)), each card's share of the step;
+model_flops_ratio = MODEL_FLOPS / (counted flops x n_devices) catches
+recomputation and padded work (remat, full-square attention, an MoE's
+cap + 1 slots) and, on a mesh, work repeated on replicas;
+roofline_fraction = ideal_time / bound, where bound = max(three terms).
 The dry run counts every executed op, loops included, so the reference's
 scan-versus-unroll caveat has no counterpart: ``merged_table`` gives one
-row a record.
+row a record, of the mesh it is asked for ("card", "single" or
+"multipod").
 """
 from __future__ import annotations
 
@@ -42,6 +61,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BW = 3.35e12
 HBM_BYTES = 80e9
 NVLINK_BW = 450e9
+INTERNODE_BW = 50e9
+NODE_CARDS = 8
 
 ARTIFACT_DIR = os.path.abspath(os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
@@ -142,10 +163,12 @@ def roofline_terms(record: dict) -> dict:
     picks its analytic bytes."""
     flops = record["cost"]["flops"]
     mem = record["memory"]
+    n_dev = record.get("n_devices", 1)
     peak = PEAK_FLOPS[record.get("compute_dtype", "float32")]
     compute_s = flops / peak
     memory_s = (mem["argument_bytes"] + mem["output_bytes"]) / HBM_BW
-    collective_s = record["collectives"]["total_bytes"] / NVLINK_BW
+    link = NVLINK_BW if n_dev <= NODE_CARDS else INTERNODE_BW
+    collective_s = record["collectives"]["total_bytes"] / link
     bound = max(compute_s, memory_s, collective_s, 1e-12)
     dominant = max(
         (("compute", compute_s), ("memory", memory_s),
@@ -155,7 +178,8 @@ def roofline_terms(record: dict) -> dict:
         record["arch"], record["cell"],
         record.get("kind", record["meta"].get("kind", "")),
         record.get("variant", "base"))
-    ideal_s = max(model_flops / peak, model_bytes / HBM_BW)
+    ideal_s = max(model_flops / (n_dev * peak),
+                  model_bytes / (n_dev * HBM_BW))
     return {
         "compute_s": compute_s,
         "memory_s": memory_s,
@@ -166,16 +190,23 @@ def roofline_terms(record: dict) -> dict:
         "model_bytes": model_bytes,
         "ideal_s": ideal_s,
         "counted_flops": flops,
-        "model_flops_ratio": model_flops / flops if flops else 0.0,
+        "model_flops_ratio": (model_flops / (flops * n_dev)
+                              if flops else 0.0),
         "roofline_fraction": ideal_s / bound if bound else 0.0,
         "argument_gib": mem["argument_bytes"] / 2**30,
-        "fits_hbm": mem["argument_bytes"] < HBM_BYTES,
+        "collective_gib": record["collectives"]["total_bytes"] / 2**30,
+        "n_devices": n_dev,
+        # a mesh record's live peak (``dryrun.RankCounter``), else only
+        # the arguments
+        "peak_gib": mem.get("peak_bytes", mem["argument_bytes"]) / 2**30,
+        "fits_hbm": mem.get("peak_bytes", mem["argument_bytes"])
+        < HBM_BYTES,
     }
 
 
 def merged_table(directory: str = ARTIFACT_DIR,
                  mesh: str = "card") -> list[dict]:
-    """One row per (arch, cell, variant) record."""
+    """One row per (arch, cell, variant) record of ``mesh``."""
     rows = []
     for (arch, cell, m, variant), rec in sorted(
             load_artifacts(directory).items()):
@@ -190,18 +221,34 @@ def merged_table(directory: str = ARTIFACT_DIR,
 
 def format_table(rows: list[dict]) -> str:
     hdr = (f"{'arch':<26} {'cell':<14} {'variant':<22} {'compute':>10} "
-           f"{'memory':>10} {'ideal':>10} {'dom':>8} {'MF-ratio':>8} "
-           f"{'RL-frac':>8} {'args':>9} {'fits':>5}")
+           f"{'memory':>10} {'collect':>10} {'ideal':>10} {'dom':>10} "
+           f"{'MF-ratio':>8} {'RL-frac':>8} {'args':>9} {'fits':>5}")
     lines = [hdr, "-" * len(hdr)]
     for t in rows:
         lines.append(
             f"{t['arch']:<26} {t['cell']:<14} {t['variant']:<22} "
             f"{t['compute_s'] * 1e3:9.3f}m {t['memory_s'] * 1e3:9.3f}m "
-            f"{t['ideal_s'] * 1e3:9.3f}m {t['dominant']:>8} "
+            f"{t['collective_s'] * 1e3:9.3f}m "
+            f"{t['ideal_s'] * 1e3:9.3f}m {t['dominant']:>10} "
             f"{t['model_flops_ratio']:8.3f} {t['roofline_fraction']:8.3f} "
             f"{t['argument_gib']:8.2f}G {str(t['fits_hbm']):>5}")
     return "\n".join(lines)
 
 
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser()
+    p.add_argument("--dir", default=ARTIFACT_DIR)
+    p.add_argument("--mesh", default="all",
+                   choices=("card", "single", "multipod", "all"))
+    args = p.parse_args(argv)
+    for mesh in (("card", "single", "multipod") if args.mesh == "all"
+                 else (args.mesh,)):
+        rows = merged_table(args.dir, mesh)
+        if rows:
+            print(f"== {mesh}")
+            print(format_table(rows))
+
+
 if __name__ == "__main__":
-    print(format_table(merged_table()))
+    main()

@@ -3,8 +3,8 @@
 The port's optimizers, train states and checkpoints walk the same trees as
 the reference's: dicts (keys sorted), NamedTuples (fields in declaration
 order), lists and tuples (in order), and ``None``, an empty subtree with no
-leaf.  An ``nn.Module`` is a node whose children are those of its
-parameters' tree (``module_tree``: ``tables.3`` becomes ``["tables"][3]``),
+leaf; a partition spec (``models.layers.P``, a tuple) is a leaf.  An
+``nn.Module`` is a node whose children are those of its parameters' tree (``module_tree``: ``tables.3`` becomes ``["tables"][3]``),
 so a model stands where the reference holds its params dict, and a leaf's
 name is its '/'-joined path (``params/tables/0``, ``opt_state/m/bot_mlp/0/w``)
 in both packages.  Anything else is a leaf.
@@ -51,9 +51,14 @@ def children(tree) -> list[tuple[str, Any]] | None:
         return [(str(k), tree[k]) for k in sorted(tree)]
     if _is_namedtuple(tree):
         return list(zip(tree._fields, tree))
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not _is_spec(tree):
         return [(str(i), c) for i, c in enumerate(tree)]
     return None
+
+
+def _is_spec(x) -> bool:
+    """A partition spec (``models.layers.P``) is a leaf."""
+    return getattr(x, "_is_partition_spec", False)
 
 
 def flatten_with_names(tree, prefix: str = "") -> list[tuple[str, Any]]:
