@@ -340,14 +340,19 @@ Phases, each printing one JSON line:
            ``smollm-135m/decode_32k`` at ``batch=8`` against the device
            memory ``make_args`` allocates on the card (within 1% + 1 MB)
   placements a one-rank NCCL group and a (1, 1) ``DeviceMesh``: smollm-135m
-           and granite-moe-1b decode at batch 8, MIND ``serve_p99`` and
-           MACE ``molecule`` run on DTensor arguments (``shard_args``);
-           each output bit for bit the plain program's (granite, now on
-           ``moe_fwd_sharded``, within 2^-6 of its largest logit), kernel
-           H launched on the sharded MIND cell; then one cell a family
-           traced on ``meta`` over the fake process group on the
-           production (16, 16) and (2, 16, 16) meshes: rank 0's GB,
-           collective GB by kind, whether it fits 80 GB, the seconds
+           and granite-moe-1b decode at batch 8, MIND ``serve_p99``, MACE
+           ``molecule`` and MIND ``retrieval_cand`` under ``rpf=1`` (the
+           sharded query step: the rank's forest cell, kernels A and B,
+           the merge's all-gather) run on DTensor arguments
+           (``shard_args``); each output bit for bit the plain program's
+           (granite, now on ``moe_fwd_sharded``, within 2^-6 of its
+           largest logit), the ``rpf=1`` rank's forest bit for bit the
+           plain ``Mesh((1, 1))`` build, kernel H launched on the sharded
+           MIND serve cell, A and B on the ``rpf=1`` cell; then one cell a
+           family and the ``rpf=1`` retrieval traced on ``meta`` over the
+           fake process group on the production (16, 16) and (2, 16, 16)
+           meshes: rank 0's GB, collective GB by kind, whether it fits 80
+           GB, the seconds
   timing   ms per 1024-query batch (CUDA events, median after warm-up),
            QPS, recall@1 / @10 against exact k-NN (MNIST) or against kernel
            E's exact chi2 top-1 (ISS-595); recall with 4 probes must not
@@ -4756,15 +4761,20 @@ def main():
     # a one-rank NCCL group and a (1, 1) DeviceMesh: smollm-135m decode
     # (batch 8), granite-moe-1b decode (batch 8: the MoE blocks now take
     # moe_fwd_sharded), MIND serve_p99 (the row-split catalog gathered
-    # through kernel H) and MACE molecule (one train step) at full width,
-    # their arguments split by shard_args as the programs' placements say.
-    # Gates: each output bit for bit the plain program's on the same seed
-    # (granite within the moe path's bf16 rule of its plain decode: 2^-6
-    # of the largest logit, its dispatch runs other ops), kernel H launched
-    # on the sharded MIND cell, no plain version.  Then the fake-group dry
-    # run of one cell a family at full size on the production meshes
-    # (16, 16) and (2, 16, 16): rank 0's GB, collective GB by kind, whether
-    # its arguments fit 80 GB
+    # through kernel H), MACE molecule (one train step) and MIND
+    # retrieval_cand under rpf=1 (the sharded query step: the rank's forest
+    # cell built from its catalog rows, kernels A and B, the merge's
+    # all-gather over NCCL) at full width, their arguments split by
+    # shard_args as the programs' placements say.  Gates: each output bit
+    # for bit the plain program's on the same seed (granite within the moe
+    # path's bf16 rule of its plain decode: 2^-6 of the largest logit, its
+    # dispatch runs other ops), the rpf=1 rank's forest bit for bit the
+    # plain program's Mesh((1, 1)) build, kernel H launched on the sharded
+    # MIND serve cell and A and B on the rpf=1 cell, no plain version.
+    # Then the fake-group dry run of one cell a family (and the rpf=1
+    # retrieval) at full size on the production meshes (16, 16) and
+    # (2, 16, 16): rank 0's GB, collective GB by kind, whether its
+    # arguments fit 80 GB
     def placements_phase():
         import torch.distributed as dist
         from repro_torch.launch import dryrun, steps
@@ -4787,14 +4797,24 @@ def main():
                     ("smollm-135m", "decode_32k", "batch=8", ()),
                     ("granite-moe-1b-a400m", "decode_32k", "batch=8", ()),
                     ("mind", "serve_p99", "base", ("embedding_bag",)),
-                    ("mace", "molecule", "base", ())):
+                    ("mace", "molecule", "base", ()),
+                    ("mind", "retrieval_cand", "rpf=1",
+                     ("forest_traverse", "fused_gather_topk"))):
                 plain = steps.build_cell(arch, cell, variant=variant,
                                          device=dev)
-                want = flatten_with_names(plain.fn(*plain.make_args(
-                    gen.manual_seed(0))))
+                plain_args = plain.make_args(gen.manual_seed(0))
+                want = flatten_with_names(plain.fn(*plain_args))
                 del plain
                 prog = steps.build_cell(arch, cell, dm, variant=variant)
                 args = prog.shard_args(prog.make_args(gen.manual_seed(0)))
+                if variant == "rpf=1":
+                    # the rank's cell against the plain Mesh((1, 1)) build
+                    (_, cell_forest), = plain_args[2].cells
+                    check(all(torch.equal(local(t)[0, 0], w)
+                              for t, w in zip(args[2], cell_forest)),
+                          "placements rpf=1: the rank's forest is not the "
+                          "Mesh((1, 1)) build")
+                del plain_args
                 got, launches, ref_calls = counted(
                     torch, counters, lambda: prog.fn(*args))
                 require(launches, ref_calls, names,
@@ -4838,18 +4858,22 @@ def main():
         dry = {}
         try:
             for mesh in ("single", "multipod"):
-                for arch, cell in (("smollm-135m", "decode_32k"),
-                                   ("granite-moe-1b-a400m", "decode_32k"),
-                                   ("mind", "serve_p99"),
-                                   ("mace", "molecule")):
-                    r = dryrun.run_cell(arch, cell, save=False, mesh=mesh)
+                for arch, cell, variant in (
+                        ("smollm-135m", "decode_32k", "base"),
+                        ("granite-moe-1b-a400m", "decode_32k", "base"),
+                        ("mind", "serve_p99", "base"),
+                        ("mace", "molecule", "base"),
+                        ("mind", "retrieval_cand", "rpf=1")):
+                    r = dryrun.run_cell(arch, cell, variant, save=False,
+                                        mesh=mesh)
                     gb = (r["memory"]["argument_bytes"]
                           + r["memory"]["output_bytes"]) / 1e9
                     check(r["n_devices"] == (256 if mesh == "single"
                                              else 512),
                           f"placements dry run {arch} {mesh}: "
                           f"{r['n_devices']} devices")
-                    dry[f"{arch}/{cell}/{mesh}"] = {
+                    dry[f"{arch}/{cell}/{mesh}" + (
+                        "" if variant == "base" else f"/{variant}")] = {
                         "rank_gb": gb,
                         "argument_gb": r["memory"]["argument_bytes"] / 1e9,
                         "peak_gb": r["memory"]["peak_bytes"] / 1e9,

@@ -18,11 +18,26 @@ Sharding model:
 
 The mesh is a grid of cells, flattened db axes first and the tree axis
 last (the order ``lax.all_gather`` over all the axes gives the reference's
-merge).  Without a process group every cell runs in this process, one
-after another, on the mesh's device; with one, the cells are dealt to the
-group's ranks in contiguous blocks and the merge gathers the ranks' lists
-with ``torch.distributed.all_gather_into_tensor``.  Every rank gets the
-merged answer.
+merge).  It is one of two kinds:
+
+  * the logical :class:`Mesh`.  Without a process group every cell runs
+    in this process, one after another, on the mesh's device; with one,
+    the cells are dealt to the group's ranks in contiguous blocks.  Every
+    process holds every catalog row, and a cell slices its rows out of
+    the whole ``db``.
+  * a ``DeviceMesh`` whose dimensions are the db axes then the tree axis
+    and whose ranks are the default process group's in row-major order:
+    rank ``di * T + ti`` holds cell (di, ti) and nothing else, placed as
+    the reference's ``shard_map`` in_specs.  ``build_sharded_index``
+    builds this rank's cell from its own rows and returns the stacked
+    ``Forest`` (D, T, ...) as DTensors under ``P(db_axes, tree_axis)``;
+    the step takes that forest, the queries as plain tensors every rank
+    holds whole, and ``db`` (and ``live``) as DTensors with their rows
+    split over the db axes, of which the rank reads its own.
+
+Either way the merge gathers the ranks' lists in rank order with
+``torch.distributed.all_gather_into_tensor`` (the default group on a
+``DeviceMesh``), and every rank gets the merged answer.
 
 Two query surfaces:
   * ``make_query_fn`` -- the raw step for one operating point; it serves
@@ -61,6 +76,8 @@ from repro_torch.index.params import (CapabilityError, SearchParams,
                                       Violation)
 from repro_torch.index.segments import brute_force_topk
 from repro_torch.kernels.common import POS_INF, topk_smallest
+from repro_torch.models.layers import (P, is_device_mesh, is_dtensor,
+                                       mesh_sizes, placements)
 
 __all__ = ["CellDraws", "Mesh", "ShardedForest", "ShardedIndex",
            "build_sharded_index", "make_query_fn", "merge_topk_pairs"]
@@ -110,24 +127,65 @@ class Mesh:
         """(B, m) of this rank's cells -> (B, world * m), ranks in order."""
         if self.group is None:
             return t
-        import torch.distributed as dist
-        b, m = t.shape
-        out = t.new_empty((self.world * b, m))
-        dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
-        return out.view(self.world, b, m).transpose(0, 1).reshape(
-            b, self.world * m)
+        return _gather_ranks(t, self.group)
 
 
-def _grid(mesh: Mesh, db_axes: Sequence[str], tree_axis: str
-          ) -> tuple[int, int]:
-    """(DB shards, tree shards) of ``mesh``; every mesh axis must be a db
-    axis or the tree axis."""
+def _gather_ranks(t: torch.Tensor, group=None) -> torch.Tensor:
+    """(B, m) of every rank of ``group`` (the default group for None) ->
+    (B, world * m), ranks in order: one ``all_gather_into_tensor``."""
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    b, m = t.shape
+    out = t.new_empty((world * b, m))
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out.view(world, b, m).transpose(0, 1).reshape(b, world * m)
+
+
+def _grid(mesh, db_axes: Sequence[str], tree_axis: str) -> tuple[int, int]:
+    """(DB shards, tree shards) of ``mesh`` (a :class:`Mesh` or a
+    ``DeviceMesh``); every mesh axis must be a db axis or the tree axis."""
+    sizes = mesh_sizes(mesh)
     named = tuple(db_axes) + (tree_axis,)
-    if sorted(named) != sorted(mesh.axis_names):
+    if sorted(named) != sorted(sizes):
         raise ValueError(f"db_axes {tuple(db_axes)} + tree_axis "
                          f"{tree_axis!r} must name each axis of mesh "
-                         f"{mesh.axis_names} once")
-    return math.prod(mesh.shape[a] for a in db_axes), mesh.shape[tree_axis]
+                         f"{tuple(sizes)} once")
+    return math.prod(sizes[a] for a in db_axes), sizes[tree_axis]
+
+
+def _rank_cell(mesh, db_axes: Sequence[str], tree_axis: str
+               ) -> tuple[int, int]:
+    """This rank's cell (di, ti) of the ``DeviceMesh`` ``mesh``: rank ``di
+    * T + ti``.  The merge gathers the cells' lists over the default
+    process group in rank order, so the mesh must span that group, its
+    ranks in row-major order, with its dimensions the db axes then the
+    tree axis; any other mesh is refused."""
+    import torch.distributed as dist
+    names = tuple(mesh.mesh_dim_names)
+    if names != tuple(db_axes) + (tree_axis,):
+        raise ValueError(f"a DeviceMesh with dimensions {names}: the "
+                         f"sharded index takes its cells in rank order, so "
+                         f"the dimensions must be db_axes + tree_axis, "
+                         f"{tuple(db_axes) + (tree_axis,)}")
+    world = dist.get_world_size()
+    if mesh.mesh.flatten().tolist() != list(range(world)):
+        raise ValueError(f"the DeviceMesh {names} of shape "
+                         f"{tuple(mesh.shape)} does not span the default "
+                         f"process group's {world} ranks in row-major "
+                         f"order: the merge gathers over that group, one "
+                         f"cell a rank")
+    return divmod(dist.get_rank(), mesh_sizes(mesh)[tree_axis])
+
+
+def _rank_shard(t, spec: tuple, mesh, what: str) -> torch.Tensor:
+    """This rank's shard of ``t``, a DTensor on ``mesh`` that must be
+    placed as ``spec`` says."""
+    want = placements(spec, mesh)
+    if not is_dtensor(t) or tuple(t.placements) != want:
+        got = tuple(t.placements) if is_dtensor(t) else type(t).__name__
+        raise ValueError(f"on a DeviceMesh the sharded step takes {what} "
+                         f"as a DTensor placed {want}, not {got}")
+    return t.to_local()
 
 
 class CellDraws:
@@ -154,33 +212,55 @@ class ShardedForest(NamedTuple):
         return self.cfg.n_trees
 
 
-def build_sharded_index(seed: int, db, cfg: ForestConfig, mesh: Mesh,
+def _build_cell(seed: int, rows: torch.Tensor, local_cfg: ForestConfig,
+                di: int, ti: int, draws: CellDraws | None) -> Forest:
+    """Cell (di, ti)'s forest over its ``rows``, from ``seal_seed(seal_seed(
+    seed, di), ti)`` or from ``draws``."""
+    if draws is not None:
+        return build_forest(rows, local_cfg,
+                            draws=draws(di, ti, rows.shape[0]),
+                            device=rows.device)
+    gen = torch.Generator(device=rows.device).manual_seed(
+        seal_seed(seal_seed(seed, di), ti))
+    return build_forest(rows, local_cfg, generator=gen, device=rows.device)
+
+
+def build_sharded_index(seed: int, db, cfg: ForestConfig, mesh,
                         db_axes: Sequence[str] = ("data",),
                         tree_axis: str = "model",
-                        draws: CellDraws | None = None) -> ShardedForest:
+                        draws: CellDraws | None = None):
     """Build this process's cells over ``db`` (N, d): cell (di, ti) builds
     ``max(1, L // T)`` trees over rows ``di * n_local`` to ``(di + 1) *
     n_local`` (``n_local = N // D``; trailing rows past D * n_local are
     in no cell) from ``seal_seed(seal_seed(seed, di), ti)``, or from
-    ``draws(di, ti, n_local)``."""
+    ``draws(di, ti, n_local)``.
+
+    On a logical :class:`Mesh`, a ``ShardedForest`` of this process's
+    cells, ``db`` moved to the mesh's device.  On a ``DeviceMesh``, the
+    rank builds its own cell only, from its rows of ``db`` where ``db``
+    lies, and returns the stacked ``Forest`` (D, T, ...) as DTensors under
+    ``P(db_axes, tree_axis)``, each rank's shard its cell (1, 1, ...)."""
     d_shards, t_shards = _grid(mesh, db_axes, tree_axis)
-    db = torch.as_tensor(db, dtype=torch.float32, device=mesh.device)
+    db = torch.as_tensor(db, dtype=torch.float32, device=None
+                         if is_device_mesh(mesh) else mesh.device)
     n_local = db.shape[0] // d_shards
     local_cfg = cfg._replace(n_trees=max(1, cfg.n_trees // t_shards)
                              ).resolved(n_local)
+    if is_device_mesh(mesh):
+        from torch.distributed.tensor import DTensor
+        di, ti = _rank_cell(mesh, db_axes, tree_axis)
+        forest = _build_cell(seed, db[di * n_local:(di + 1) * n_local],
+                             local_cfg, di, ti, draws)
+        pl = placements(P(tuple(db_axes), tree_axis), mesh)
+        return Forest(*(DTensor.from_local(x[None, None], mesh, pl,
+                                           run_check=False)
+                        for x in forest))
     cells = []
     for c in mesh.local_cells():
         di, ti = divmod(c, t_shards)
         rows = db[di * n_local:(di + 1) * n_local]
-        if draws is not None:
-            forest = build_forest(rows, local_cfg, draws=draws(di, ti, n_local),
-                                  device=mesh.device)
-        else:
-            gen = torch.Generator(device=mesh.device).manual_seed(
-                seal_seed(seal_seed(seed, di), ti))
-            forest = build_forest(rows, local_cfg, generator=gen,
-                                  device=mesh.device)
-        cells.append(((di, ti), forest))
+        cells.append(((di, ti), _build_cell(seed, rows, local_cfg, di, ti,
+                                            draws)))
     return ShardedForest(cells=tuple(cells), n_local=n_local, cfg=local_cfg)
 
 
@@ -220,8 +300,14 @@ def make_query_fn(index_cfg: ForestConfig, n_local: int, mesh: Mesh,
     the last two around steps like this one).  ``with_validity=True``
     takes a fourth argument, an (N,) bool row bitmap (tombstones, a
     compiled predicate): each cell masks its rows' slice inside the fused
-    rerank, so a dead row never takes a place.  ``db`` is every row on the
-    mesh's device, ids are row positions in it.
+    rerank, so a dead row never takes a place.  On a logical
+    :class:`Mesh`, ``index`` is a ``ShardedForest`` and ``db`` every row
+    on the mesh's device; on a ``DeviceMesh`` (the reference's
+    ``shard_map`` in_specs), ``index`` is ``build_sharded_index``'s
+    stacked ``Forest`` under ``P(db_axes, tree_axis)``, ``db`` and
+    ``live`` DTensors with their rows split over the db axes, and the
+    queries plain tensors every rank holds whole; a mesh that
+    ``_rank_cell`` refuses raises here.  Ids are row positions in ``db``.
     """
     chunk, n_probes = 0, 1
     if params is not None:
@@ -253,27 +339,54 @@ def make_query_fn(index_cfg: ForestConfig, n_local: int, mesh: Mesh,
     cfg = index_cfg.resolved(n_local)
     _grid(mesh, db_axes, tree_axis)
 
-    def cell_topk(forest: Forest, q: torch.Tensor, db: torch.Tensor,
+    def cell_topk(forest: Forest, q: torch.Tensor, rows: torch.Tensor,
                   live: torch.Tensor | None, lo: int):
         # descend the cell's trees (kernel A), slice their leaves, rerank
         # against the shard's rows (kernel B), globalize the row ids
         cand_ids, mask = candidates(forest, q, cfg.max_depth, cfg.leaf_pad,
                                     n_probes, kernel_mode)
-        d, i = rerank_fused(
-            q, cand_ids, mask, db[lo:lo + n_local], k, metric=metric,
-            mode=kernel_mode, dedup=dedup, chunk=chunk,
-            valid=None if live is None else live[lo:lo + n_local])
+        d, i = rerank_fused(q, cand_ids, mask, rows, k, metric=metric,
+                            mode=kernel_mode, dedup=dedup, chunk=chunk,
+                            valid=live)
         return d, torch.where(i >= 0, i + lo, -1)
 
-    def step(index: ShardedForest, queries, db: torch.Tensor,
-             live: torch.Tensor | None = None):
-        q = torch.as_tensor(queries, dtype=torch.float32, device=mesh.device)
-        q = torch.atleast_2d(q).contiguous()
-        parts = [cell_topk(forest, q, db, live, di * n_local)
-                 for (di, _), forest in index.cells]
-        gd = mesh.all_gather(torch.cat([p[0] for p in parts], dim=1))
-        gi = mesh.all_gather(torch.cat([p[1] for p in parts], dim=1))
-        return _merge_cells(gd, gi, k, dedup)
+    def as_queries(queries, device) -> torch.Tensor:
+        q = torch.as_tensor(queries, dtype=torch.float32, device=device)
+        return torch.atleast_2d(q).contiguous()
+
+    if is_device_mesh(mesh):
+        di, _ = _rank_cell(mesh, db_axes, tree_axis)
+        row_spec, cell_spec = P(tuple(db_axes), None), P(tuple(db_axes),
+                                                          tree_axis)
+
+        def step(index: Forest, queries, db, live=None):
+            # this rank's cell, rows and bitmap; the cells' lists gathered
+            # in rank order, which is cell order
+            rows = _rank_shard(db, row_spec, mesh, "db")
+            if rows.shape[0] != n_local:
+                raise ValueError(f"the rank holds {rows.shape[0]} rows of "
+                                 f"db, not n_local = {n_local}")
+            cell = Forest(*(_rank_shard(x, cell_spec, mesh, "the forest")
+                            [0, 0] for x in index))
+            if live is not None:
+                live = _rank_shard(live, P(tuple(db_axes)), mesh, "live")
+            d, i = cell_topk(cell, as_queries(queries, rows.device), rows,
+                             live, di * n_local)
+            return _merge_cells(_gather_ranks(d), _gather_ranks(i), k,
+                                dedup)
+    else:
+        def step(index: ShardedForest, queries, db: torch.Tensor,
+                 live: torch.Tensor | None = None):
+            q = as_queries(queries, mesh.device)
+            parts = []
+            for (di, _), forest in index.cells:
+                lo = di * n_local
+                parts.append(cell_topk(
+                    forest, q, db[lo:lo + n_local],
+                    None if live is None else live[lo:lo + n_local], lo))
+            gd = mesh.all_gather(torch.cat([p[0] for p in parts], dim=1))
+            gi = mesh.all_gather(torch.cat([p[1] for p in parts], dim=1))
+            return _merge_cells(gd, gi, k, dedup)
 
     if with_validity:
         return step

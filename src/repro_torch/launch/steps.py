@@ -70,9 +70,12 @@ split over dp).  The mesh is either
   them: the models constrain activations where the reference does, the
   LM cells pass the mesh so their MoE blocks take the expert-parallel
   paths, the tables gather vocab-parallel, MACE passes messages over the
-  mesh's dp group.  Tensors a program makes itself (positions, masks,
-  constants) are replicated (``implicit_replication``); an op with no
-  DTensor rule raises.  The ``rpf=1`` retrieval has no DeviceMesh form.
+  mesh's dp group, and the ``rpf=1`` retrieval takes the reference's
+  stacked forest under ``P(dp, "model")``, built rank by rank (each rank
+  its own cell) by ``make_args``, and runs the sharded query step of
+  ``core.sharded_index`` on it.  Tensors a program makes itself
+  (positions, masks, constants) are replicated (``implicit_replication``);
+  an op with no DTensor rule raises.
 
 ``variant`` is "base" or comma-separated keys.  LM cells take the
 reference's keys (``_apply_lm_variant``: ``nl=N`` cuts the depth,
@@ -967,12 +970,14 @@ def _forest_sds(local_cfg: ForestConfig, n_local: int, cells: tuple) -> Forest:
         n_nodes=ShapeDtype(cells + (local_cfg.n_trees,), i32))
 
 
-def build_catalog_index(params: rs.MIND, mesh: Mesh, multi_pod: bool = False,
-                        draws: Optional[CellDraws] = None) -> ShardedForest:
+def build_catalog_index(params: rs.MIND, mesh, multi_pod: bool = False,
+                        draws: Optional[CellDraws] = None):
     """``MIND_FOREST`` over the catalog ``params.item_embed``, its rows
     split over the mesh's db axes and its trees over ``model``; cell (di,
     ti) draws from ``seal_seed(seal_seed(0, di), ti)``, or from
-    ``draws``."""
+    ``draws``.  On a logical ``Mesh`` the ``ShardedForest`` of this
+    process's cells; on a ``DeviceMesh`` the stacked ``Forest`` as
+    DTensors, this rank's cell built from its own rows."""
     with torch.no_grad():
         return build_sharded_index(0, params.item_embed.detach(),
                                    MIND_FOREST, mesh,
@@ -993,6 +998,13 @@ def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
     brute-force variant's full-catalog scoring.  Ranked by l2, as the
     reference's (whose docstring assumes unit-norm rows that ``init_mind``
     does not make).  ``kernel_mode="ref"`` runs the plain versions.
+
+    On a logical ``Mesh`` the forest argument is a ``ShardedForest`` of
+    cells; on a ``DeviceMesh`` it is the reference's stacked ``Forest``
+    under ``P(dp, "model")``: the interests come from the DTensor
+    parameters (the history through ``row_split_gather``) and go to the
+    sharded step whole, and each rank queries its own cell against its
+    own catalog rows.
     """
     cfg: RecsysConfig = spec.config
     dp = dp_axes(multi_pod)
@@ -1007,16 +1019,16 @@ def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
     params_sds = _params_sds(cfg)
     forest_sds = _forest_sds(local_cfg, n_local, (dpn, tpn))
     hist_sds = ShapeDtype((1, cfg.hist_len), torch.int32)
-    if is_device_mesh(mesh):
-        raise NotImplementedError("the rpf=1 retrieval runs on the logical "
-                                  "Mesh only, not on a DeviceMesh")
     qstep = make_query_fn(local_cfg, n_local, mesh, db_axes=dp,
                           tree_axis="model", k=K_RETRIEVE, metric="l2",
                           kernel_mode=kernel_mode)
 
     @torch.no_grad()
-    def retrieve(params, hist, forest: ShardedForest):
+    def retrieve(params, hist, forest):
         interests = rs.mind_user_fwd(params, cfg, hist)      # (1, K, D)
+        if is_dtensor(interests):
+            # the sharded step takes its queries whole on every rank
+            interests = interests.full_tensor()
         flat = interests.reshape(cfg.n_interests, cfg.embed_dim)
         d, ids = qstep(forest, flat, params.item_embed)
         # merge the per-interest lists into one top-k
@@ -1035,6 +1047,8 @@ def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
     flops = 2 * cand * cfg.n_interests * cfg.embed_dim
 
     def meta_args():
+        if is_device_mesh(mesh):
+            return _recsys_init(cfg)(), _empty(hist_sds), _empty(forest_sds)
         cells = tuple(((di, ti), tree_map(lambda s: torch.empty(
             s.shape[2:], dtype=s.dtype, device="meta"), forest_sds))
             for di in range(dpn) for ti in range(tpn))
@@ -1046,7 +1060,7 @@ def _mind_rpf_retrieval_program(spec: ArchSpec, cell: ShapeCell,
     pspecs = dict(_recsys_specs(cfg, _axes(mesh, multi_pod)))
     pspecs["item_embed"] = P(tuple(dp), None)
     return CellProgram(
-        fn=retrieve,
+        fn=_on_mesh(retrieve, mesh),
         args=(params_sds, hist_sds, forest_sds),
         meta=_recsys_meta(cfg, cell, params_sds, train=False, flops=flops),
         make_args=make_args,

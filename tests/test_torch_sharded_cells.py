@@ -5,7 +5,8 @@ Small architectures are registered in both packages' registries (the
 same shapes): a dense LM (f32, 2 layers, heads split over tp), an MoE LM
 (4 experts, top-2, a shared expert, a capacity that drops nothing) and
 its top-1 twin under ``moe_a2a`` (the all-to-all dispatch), DLRM with a 20,000-row table (row-split over ``model``), MIND with a
-20,000-item catalog, and MACE at d_hidden 8 on 4 molecules.
+20,000-item catalog and its twin on 4,000 items for the ``rpf=1``
+retrieval, and MACE at d_hidden 8 on 4 molecules.
 
 * The reference draws every model's weights with its own ``init_*`` in
   this process; a subprocess with 4 forced host devices runs its dense
@@ -21,6 +22,16 @@ its top-1 twin under ``moe_a2a`` (the all-to-all dispatch), DLRM with a 20,000-r
 * This process runs each program unsharded on the same weights and seeds
   (the dense LM's train step also under Adafactor, its factored moments
   placed as the reference's ``_vr`` / ``_vc``).
+* MIND's ``rpf=1`` retrieval on the (2, 2) mesh: the reference's
+  subprocess builds its stacked forest first and writes it for the gloo
+  ranks, then runs its program under its ``in_shardings``; each rank
+  builds its own forest cell, runs the sharded step on the program's
+  interests (also under a validity bitmap), the cell, and the cell on
+  the reference's forest.  Rank cells and steps are held bit for bit
+  against the logical ``Mesh((2, 2))`` in this process, the cells by the
+  compare rule over runs of equal ids (the merge keeps an item once per
+  interest that found it) against the logical program and the
+  reference's.
 
 Tolerances (``tests/test_torch_lm.py``'s and ``test_torch_moe.py``'s):
 model outputs and train states rtol 1e-5 / atol 1e-5, the recommenders'
@@ -30,8 +41,10 @@ rounds k and v, which a sharded program sums in another order, to the
 neighbouring bf16 value here and there, and a one-unit change of a cache
 entry moves the logits by ~3e-3, past the LM gates' 2e-3.
 
-A fake-group dry run of the dense LM's train cell on (4, 2) checks the
-per-rank record: 8 devices, argument bytes the sum of rank 0's shards,
+A fake-group dry run of the ``rpf=1`` cell on (4, 2) checks the merge's
+all-gather bytes and rank 0's shards; meshes off the default group are
+refused.  A fake-group dry run of the dense LM's train cell on (4, 2)
+checks the per-rank record: 8 devices, argument bytes the sum of rank 0's shards,
 collectives counted, FLOPs within [1/8, 1/8 x 1.25] of the one-card
 record's (the batch splits over 4, the projections and logits over 2
 more; the attention's heads are gathered whole, so its few products split
@@ -87,6 +100,14 @@ def tiny_archs(base, mace_cfg):
         "tiny-mace": base.ArchSpec("tiny-mace", "gnn", dataclasses.replace(
             mace_cfg, d_hidden=8), (base.ShapeCell(
                 "molecule", "train", n_nodes=8, n_edges=16, n_graphs=4),)),
+        # tiny-mind's twin on a 4,000-item catalog for the rpf=1 retrieval
+        # (its forest over 20,000 rows takes seconds to build)
+        "tiny-mind-4k": base.ArchSpec("tiny-mind-4k", "recsys",
+                                      base.RecsysConfig(
+            name="tiny-mind-4k", model="mind", embed_dim=8, n_interests=4,
+            capsule_iters=3, hist_len=6, item_vocab=4000), (base.ShapeCell(
+                "retrieval_cand", "retrieval", batch=1,
+                n_candidates=4000),)),
     }
 
 
@@ -139,6 +160,32 @@ def save(prefix, tree):
 
 
 weights = dict(np.load(sys.argv[1]))
+in_mesh = (jax.set_mesh if hasattr(jax, "set_mesh") else lambda m: m)
+
+# MIND's rpf=1 retrieval on its (2, 2) mesh under its in_shardings; the
+# stacked forest goes to the gloo ranks as soon as it is built
+from repro.core import sharded_index as jsharded
+from repro.core.forest import ForestConfig
+mind = jax.tree.map(jnp.asarray, nest({k[len("w/mind4k/"):]: v
+                                       for k, v in weights.items()
+                                       if k.startswith("w/mind4k/")}))
+spec = archs["tiny-mind-4k"]
+mesh = make_test_mesh((2, 2))
+prog = steps._mind_rpf_retrieval_program(spec, spec.cells[0], mesh, False)
+with in_mesh(mesh):
+    forest = jsharded.build_sharded_index(
+        jax.random.key(0), mind["item_embed"],
+        ForestConfig(n_trees=80, capacity=16, split_ratio=0.3), mesh,
+        db_axes=("data",), tree_axis="model").forest
+    forest_path = os.path.join(os.path.dirname(sys.argv[2]), "rpf_forest")
+    np.savez(forest_path + ".tmp.npz",
+             **{k: np.asarray(v) for k, v in forest._asdict().items()})
+    os.replace(forest_path + ".tmp.npz", forest_path + ".npz")
+    d, i = jax.jit(prog.fn, in_shardings=prog.in_shardings)(
+        *jax.device_put((mind, jnp.asarray(weights["rpf/hist"]), forest),
+                        prog.in_shardings))
+out["ref/rpf/d"], out["ref/rpf/i"] = np.asarray(d), np.asarray(i)
+
 p = jax.tree.map(jnp.asarray, nest({k[len("w/lm/"):]: v
                                     for k, v in weights.items()
                                     if k.startswith("w/lm/")}))
@@ -150,8 +197,7 @@ prog = steps.build_cell("tiny-lm", "train_4k", mesh, False)
 opt = adamw(constant_schedule(1e-4), state_dtype=jnp.float32)
 state = TrainState(jnp.zeros((), jnp.int32), p, opt.init(p), None)
 batch = {"tokens": jnp.asarray(tok[:, :-1]), "labels": jnp.asarray(tok[:, 1:])}
-in_mesh = jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh
-with in_mesh:
+with in_mesh(mesh):
     new_state, metrics = jax.jit(prog.fn, in_shardings=prog.in_shardings)(
         *jax.device_put((state, batch), prog.in_shardings))
     out["ref/train/loss"] = np.asarray(metrics["loss"])
@@ -184,6 +230,7 @@ def rank_main(rank, port, weights, out_path):
     from repro_torch import configs
     from repro_torch.configs import base
     from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
     from repro_torch.models import recsys as rs
     from repro_torch.models.layers import P, placements
     from repro_torch.tree import flatten_with_names
@@ -247,12 +294,41 @@ def rank_main(rank, port, weights, out_path):
     logical = Mesh((2, 2), ("data", "model"), device="cpu",
                    group=dist.group.WORLD)
     got[f"cell{rank}"] = np.asarray(list(logical.local_cells()))
+    # MIND's rpf=1 retrieval: this rank's forest cell, the sharded step on
+    # the interests the program computes, the whole cell, and the cell on
+    # the reference's stacked forest
+    from repro_torch.convert import forest_from_numpy
+    prog = common.program("tiny-mind-4k", "retrieval_cand@rpf=1", dm)
+    params, hist, forest = prog.shard_args(common.rpf_args(dm, weights))
+    for name, t in forest._asdict().items():
+        got[f"rpf/cell{rank}/{name}"] = t.to_local()[0, 0].numpy()
+    got["rpf/cell/0"], got["rpf/cell/1"] = prog.fn(params, hist, forest)
+    with implicit_replication(), torch.no_grad():
+        interests = rs.mind_user_fwd(params, params.cfg, hist)
+        got["rpf/interests"] = interests.full_tensor().reshape(4, 8)
+        got["rpf/step/0"], got["rpf/step/1"] = common.rpf_step(dm)(
+            forest, got["rpf/interests"], params.item_embed)
+        live = common.distribute(common.rpf_live(), P("data"), dm)
+        got["rpf/live/0"], got["rpf/live/1"] = common.rpf_step(
+            dm, with_validity=True)(forest, got["rpf/interests"],
+                                    params.item_embed, live)
+    ref_forest = forest_from_numpy(common.wait_for(os.path.join(
+        os.path.dirname(out_path), "rpf_forest.npz")), device="cpu")
+    ref_forest = steps.shard_args(ref_forest, prog.placements[2], dm)
+    got["rpf/on_ref/0"], got["rpf/on_ref/1"] = prog.fn(params, hist,
+                                                       ref_forest)
+    got = {k: v.numpy() if isinstance(v, torch.Tensor) else v
+           for k, v in got.items()}
     gathered = [None] * 4
     dist.all_gather_object(gathered, got if rank else None)
     if rank == 0:
         for g in gathered[1:]:
             got.update({k: v for k, v in g.items()
-                        if k.startswith(("coord", "cell"))})
+                        if k.startswith(("coord", "cell", "rpf/cell"))})
+            # every rank gets the merged answer
+            for k in ("rpf/cell/0", "rpf/cell/1", "rpf/step/0",
+                      "rpf/step/1"):
+                assert np.array_equal(g[k], got[k]), k
         np.savez(out_path, **got)
     dist.barrier()
     dist.destroy_process_group()
@@ -298,7 +374,8 @@ def nest(flat):
 
 
 FAMILY = {"tiny-lm": "lm", "tiny-moe": "moe", "tiny-moe-a2a": "moe",
-          "tiny-dlrm": "dlrm", "tiny-mind": "mind", "tiny-mace": "mace"}
+          "tiny-dlrm": "dlrm", "tiny-mind": "mind", "tiny-mace": "mace",
+          "tiny-mind-4k": "mind4k"}
 
 
 def weights_model(arch, weights):
@@ -339,6 +416,42 @@ def args(prog, arch, cell, weights):
         from repro_torch.models.attention import KVCache
         a[1] = KVCache(a[1].k.float(), a[1].v.float())
     return tuple(a)
+
+
+def rpf_args(mesh, weights):
+    # the rpf=1 program's arguments on the loaded weights: the forest
+    # built over their catalog (make_args would build it over the drawn
+    # one), the history make_args draws at seed 5
+    from repro_torch.configs import get_arch
+    params = weights_model("tiny-mind-4k", weights)
+    hist = steps.recsys_data(get_arch("tiny-mind-4k").config, 1, 5,
+                             "cpu")["hist"]
+    return params, hist, steps.build_catalog_index(params, mesh)
+
+
+def rpf_step(mesh, with_validity=False):
+    # the sharded step of the rpf=1 program on a 2 x 2 mesh
+    from repro_torch.core.sharded_index import make_query_fn
+    local = steps.MIND_FOREST._replace(n_trees=40)
+    return make_query_fn(local, 2048, mesh, k=steps.K_RETRIEVE,
+                         metric="l2", with_validity=with_validity)
+
+
+def rpf_live():
+    # a row bitmap over the 4,096 catalog rows, a third of them dead
+    return torch.rand(4096, generator=torch.Generator().manual_seed(3)) > 0.3
+
+
+def wait_for(path, timeout=240.0):
+    # the reference's subprocess writes its forest while the ranks run
+    import os
+    import time
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(path)
+        time.sleep(0.05)
+    return dict(np.load(path))
 
 
 def mace_forces(params, batch, dpn, axes=None):
@@ -402,7 +515,9 @@ def _reference_weights() -> dict:
              "dlrm": lambda k: jrs.init_dlrm(k, archs["tiny-dlrm"].config),
              "mind": lambda k: jrs.init_mind(k, archs["tiny-mind"].config),
              "mace": lambda k: jmace.init_mace(
-                 k, archs["tiny-mace"].config, 0)}
+                 k, archs["tiny-mace"].config, 0),
+             "mind4k": lambda k: jrs.init_mind(
+                 k, archs["tiny-mind-4k"].config)}
     out = {}
     key = jax.random.key(0)
     for i, (fam, init) in enumerate(inits.items()):
@@ -411,6 +526,11 @@ def _reference_weights() -> dict:
             name = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
                             for k in path)
             out[f"w/{fam}/{name}"] = np.asarray(leaf)
+    # the history the rpf=1 program's make_args draws at seed 5
+    from repro_torch.data.recsys_data import BehaviorStream
+    cfg = archs["tiny-mind-4k"].config
+    out["rpf/hist"] = BehaviorStream(cfg.item_vocab, cfg.hist_len,
+                                     seed=ns["SEED"]).batch(1)["hist"]
     return out
 
 
@@ -432,9 +552,15 @@ def runs(tmp_path_factory):
         stderr=subprocess.PIPE, text=True)
         for script, out, env in (("ref.py", "ref.npz", _env()),
                                  ("port.py", "port.npz", port_env))]
-    for proc in procs:
-        out, err = proc.communicate(timeout=300)
-        assert proc.returncode == 0, err[-4000:]
+    try:
+        # the reference first: the ranks wait for its rpf=1 forest
+        for proc in procs:
+            out, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-4000:]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
     sys.path.insert(0, str(d))
     import sharded_common
     ref = dict(np.load(d / "ref.npz"))
@@ -533,6 +659,181 @@ def test_ranks_hold_the_row_major_cells(runs):
     for r in range(4):
         assert tuple(got[f"coord{r}"]) == divmod(r, 2)
         assert list(got[f"cell{r}"]) == [r]
+
+
+def _runs(d, ids):
+    """The first entry of each run of equal ids (the rpf=1 merge keeps an
+    item once per interest that found it, side by side)."""
+    d, ids = np.asarray(d).ravel(), np.asarray(ids).ravel()
+    first = np.ones(ids.shape, bool)
+    first[1:] = ids[1:] != ids[:-1]
+    return d[first], ids[first]
+
+
+def _runs_agree(got, want, tol=dict(rtol=1e-5, atol=1e-6)):
+    """The compare rule over runs of equal ids: distances (ascending)
+    within ``tol``, ids equal at every run separated from its neighbours
+    by more than the tolerance; returns the separated runs' count."""
+    (gd, gi), (wd, wi) = _runs(*got), _runs(*want)
+    assert len(gi) == len(wi)
+    gd, wd = gd.astype(np.float64), wd.astype(np.float64)
+    np.testing.assert_allclose(gd, wd, **tol)
+    eps = tol["rtol"] * np.abs(wd) + tol["atol"]
+    gap = wd[1:] - wd[:-1]
+    sep = np.ones_like(wd, dtype=bool)
+    sep[1:] &= gap > eps[1:] + eps[:-1]
+    sep[:-1] &= gap > eps[:-1] + eps[1:]
+    np.testing.assert_array_equal(gi[sep], wi[sep])
+    return int(sep.sum())
+
+
+@pytest.fixture(scope="module")
+def rpf_logical(runs, registered):
+    """The rpf=1 retrieval on a logical (2, 2) ``Mesh`` in this process on
+    the same weights: (args, program, answer)."""
+    from repro_torch.core.sharded_index import Mesh
+    from repro_torch.launch import steps
+    ref, _, common = runs
+    mesh = Mesh((2, 2), device="cpu")
+    args = common.rpf_args(mesh, ref)
+    prog = steps.build_cell("tiny-mind-4k", "retrieval_cand", mesh,
+                            variant="rpf=1")
+    return args, prog, prog.fn(*args)
+
+
+def test_gloo_rpf_cells_are_the_logical_cells(runs, rpf_logical):
+    """Each gloo rank built its own forest cell from its own catalog rows,
+    bit for bit cell r of the logical (2, 2) mesh's build."""
+    _, got, _ = runs
+    (_, _, forest), _, _ = rpf_logical
+    assert [c for c, _ in forest.cells] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for r, (_, cell) in enumerate(forest.cells):
+        assert cell.thresh.shape[0] == 40        # 80 trees over 2 shards
+        for name, t in cell._asdict().items():
+            np.testing.assert_array_equal(got[f"rpf/cell{r}/{name}"],
+                                          t.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("validity", [False, True])
+def test_gloo_rpf_step_is_the_logical_step(validity, runs, rpf_logical):
+    """The DeviceMesh step on the interests the ranks computed is bit for
+    bit the logical mesh's step on them: each rank reranked its own rows
+    (and its own slice of a row-split validity bitmap) and the lists were
+    merged in cell order."""
+    _, got, common = runs
+    (params, _, forest), _, _ = rpf_logical
+    from repro_torch.core.sharded_index import Mesh
+    step = common.rpf_step(Mesh((2, 2), device="cpu"), validity)
+    q = torch.from_numpy(got["rpf/interests"])
+    with torch.no_grad():
+        d, i = (step(forest, q, params.item_embed, common.rpf_live())
+                if validity else step(forest, q, params.item_embed))
+    assert int((i >= 0).sum()) > 100
+    name = "rpf/live" if validity else "rpf/step"
+    if validity:
+        assert common.rpf_live()[i[i >= 0].long()].all()
+        assert not np.array_equal(got["rpf/step/1"], i.numpy())
+    np.testing.assert_array_equal(got[f"{name}/1"], i.numpy())
+    np.testing.assert_array_equal(got[f"{name}/0"], d.numpy())
+
+
+def test_gloo_rpf_cell_equals_logical_program(runs, rpf_logical):
+    """The rpf=1 cell on the (2, 2) DeviceMesh against the logical mesh's
+    program, by the compare rule over runs of equal ids (the interests on
+    four ranks may differ from the unsharded ones in the last bits)."""
+    _, got, _ = runs
+    _, _, want = rpf_logical
+    assert got["rpf/cell/1"].shape == (1, 100)
+    assert _runs_agree((got["rpf/cell/0"], got["rpf/cell/1"]),
+                       (want[0].numpy(), want[1].numpy())) > 10
+
+
+def test_gloo_rpf_cell_equals_reference_sharded(runs):
+    """The gloo ranks' rpf=1 cell on the reference's stacked forest
+    against the reference's program on its (2, 2) mesh."""
+    ref, got, _ = runs
+    assert _runs_agree((got["rpf/on_ref/0"], got["rpf/on_ref/1"]),
+                       (ref["ref/rpf/d"], ref["ref/rpf/i"])) > 10
+
+
+def test_fake_group_dry_run_rpf(registered):
+    """The rpf=1 cell on a fake (4, 2) mesh: rank 0 holds its shards (a
+    512-row catalog shard, one cell of 40 trees) and the merge's one
+    all-gather of distances and one of ids, (4, 8 x 100) 4-byte arrays,
+    is counted."""
+    import torch.distributed as dist
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.layers import placements
+    from repro_torch.tree import leaves
+    card = dryrun.run_cell("tiny-mind-4k", "retrieval_cand", "rpf=1",
+                           save=False)
+    try:
+        dm = tmesh.make_fake_mesh((4, 2), ("data", "model"))
+        rec = dryrun.run_cell("tiny-mind-4k", "retrieval_cand", "rpf=1",
+                              save=False, mesh="single", device_mesh=dm)
+        prog = steps.build_cell("tiny-mind-4k", "retrieval_cand", dm,
+                                variant="rpf=1")
+        want, shards = 0, []
+        for s, spec in zip(leaves(prog.args), leaves(prog.placements)):
+            shape, _ = compute_local_shape_and_global_offset(
+                s.shape, dm, placements(spec, dm))
+            shards.append(tuple(shape))
+            want += math.prod(shape) * s.dtype.itemsize
+    finally:
+        dist.destroy_process_group()
+    assert (1024, 8) in shards           # the catalog's 4,096 rows over 4
+    assert (1, 1, 40, 1024) in shards    # the rank's perm: its cell
+    assert rec["n_devices"] == 8
+    assert rec["memory"]["argument_bytes"] == want
+    assert want < card["memory"]["argument_bytes"]
+    coll = rec["collectives"]
+    assert coll["counts"]["all-gather"] == 2
+    assert coll["bytes"]["all-gather"] == 2 * 4 * 8 * 100 * 4
+    # the history's rows summed over the catalog's row shards
+    assert coll["counts"]["all-reduce"] == 1
+    assert coll["bytes"]["all-reduce"] == 1 * 6 * 8 * 4
+
+
+def _bad_mesh(kind):
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch import mesh as tmesh
+    if kind == "subset":            # 4 of the group's 8 ranks
+        tmesh.make_fake_mesh((4, 2))
+        return DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+    tmesh.make_fake_mesh((2, 2))
+    if kind == "permuted":          # ranks in column-major order
+        return DeviceMesh("cpu", torch.tensor([[0, 2], [1, 3]]),
+                          mesh_dim_names=("data", "model"))
+    return DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("model", "data"))
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("subset", "does not span the default process group"),
+    ("permuted", "does not span the default process group"),
+    ("dims", "dimensions must be db_axes")])
+def test_sharded_index_refuses_a_device_mesh_off_the_group(kind, match):
+    """The DeviceMesh step gathers the cells' lists over the default
+    group in rank order: a mesh that does not span that group in
+    row-major order, or orders its dimensions otherwise, is refused by
+    both the build and the step."""
+    import torch.distributed as dist
+    from repro_torch.core.forest import ForestConfig
+    from repro_torch.core.sharded_index import (build_sharded_index,
+                                                make_query_fn)
+    cfg = ForestConfig(n_trees=4, capacity=8)
+    try:
+        mesh = _bad_mesh(kind)
+        with pytest.raises(ValueError, match=match):
+            build_sharded_index(0, torch.zeros(64, 4), cfg, mesh)
+        with pytest.raises(ValueError, match=match):
+            make_query_fn(cfg, 32, mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_dense_lm_equals_reference_sharded(runs, registered):
