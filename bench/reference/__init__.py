@@ -1,0 +1,1 @@
+"""See ``bench/__init__.py``."""
