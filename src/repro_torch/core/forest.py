@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import descend
@@ -179,23 +180,25 @@ def build_forest(x: torch.Tensor, cfg: ForestConfig, *,
     so the forest is bitwise the unchunked one, with the builder's (L, N)
     state cut to the chunk's width.
     """
-    dev = resolve_device(device)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
-    n, d = x.shape
-    cfg = cfg.resolved(n)
-    if draws is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        draws = generator_draws(generator, cfg, d, dev)
-    if not 0 < tree_chunk < cfg.n_trees:
-        return _build_trees(x, cfg, draws)
-    chunks = []
-    for lo in range(0, cfg.n_trees, tree_chunk):
-        hi = min(lo + tree_chunk, cfg.n_trees)
-        chunks.append(_build_trees(
-            x, cfg._replace(n_trees=hi - lo),
-            lambda level, lo=lo, hi=hi: tuple(a[lo:hi] for a in draws(level))))
-    return Forest(*(torch.cat(parts) for parts in zip(*chunks)))
+    with tracing.span("build.forest"):
+        dev = resolve_device(device)
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+        n, d = x.shape
+        cfg = cfg.resolved(n)
+        if draws is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            draws = generator_draws(generator, cfg, d, dev)
+        if not 0 < tree_chunk < cfg.n_trees:
+            return _build_trees(x, cfg, draws)
+        chunks = []
+        for lo in range(0, cfg.n_trees, tree_chunk):
+            hi = min(lo + tree_chunk, cfg.n_trees)
+            chunks.append(_build_trees(
+                x, cfg._replace(n_trees=hi - lo),
+                lambda level, lo=lo, hi=hi: tuple(a[lo:hi]
+                                                  for a in draws(level))))
+        return Forest(*(torch.cat(parts) for parts in zip(*chunks)))
 
 
 def _build_trees(x: torch.Tensor, cfg: ForestConfig, draws: Draws) -> Forest:
@@ -221,70 +224,82 @@ def _build_trees(x: torch.Tensor, cfg: ForestConfig, draws: Draws) -> Forest:
         return (child_base < 0) & (node_ids < n_nodes[:, None]) \
             & (counts > cap)
 
+    def any_overfull(overfull):
+        """One host wait on the device: whether any leaf is overfull."""
+        with tracing.span("build.sync"):
+            return bool(overfull.any())
+
     # level by level until no leaf anywhere is overfull, or the depth budget
     level, overfull = 0, overfull_leaves()
-    while level < cfg.max_depth and bool(overfull.any()):
-        ci, cc, u = (torch.as_tensor(a, device=dev) for a in draws(level))
-        ci, cc, u = ci.long(), cc.float(), u.float()
-        if kp == 1:
-            cc = torch.ones_like(cc)      # scale-invariant for K = 1
-        test_idx = torch.where(overfull[..., None], ci, proj_idx)
-        test_coef = torch.where(overfull[..., None], cc, proj_coef)
-        y = _project(x, test_idx.gather(1, assign[..., None].expand(-1, -1, kp)),
-                     test_coef.gather(1, assign[..., None].expand(-1, -1, kp)))
+    while level < cfg.max_depth and any_overfull(overfull):
+        with tracing.span("build.level"):
+            with tracing.span("build.draws"):
+                ci, cc, u = (torch.as_tensor(a, device=dev)
+                             for a in draws(level))
+            ci, cc, u = ci.long(), cc.float(), u.float()
+            if kp == 1:
+                cc = torch.ones_like(cc)      # scale-invariant for K = 1
+            test_idx = torch.where(overfull[..., None], ci, proj_idx)
+            test_coef = torch.where(overfull[..., None], cc, proj_coef)
+            per_point = assign[..., None].expand(-1, -1, kp)
+            y = _project(x, test_idx.gather(1, per_point),
+                         test_coef.gather(1, per_point))
 
-        # one composite (node, projection) stable sort per level: by y,
-        # then stably by node
-        order = torch.sort(y, dim=1, stable=True)[1]
-        order = order.gather(1, torch.sort(assign.gather(1, order), dim=1,
-                                           stable=True)[1])
-        y_sorted = y.gather(1, order)
+            # one composite (node, projection) stable sort per level: by y,
+            # then stably by node
+            order = torch.sort(y, dim=1, stable=True)[1]
+            order = order.gather(1, torch.sort(assign.gather(1, order), dim=1,
+                                               stable=True)[1])
+            y_sorted = y.gather(1, order)
 
-        def at(pos):
-            return y_sorted.gather(1, pos.clamp(0, n - 1))
+            def at(pos):
+                return y_sorted.gather(1, pos.clamp(0, n - 1))
 
-        start = torch.cumsum(counts, dim=1) - counts
-        lo = at(start)
-        hi = at(start + counts - 1)
-        # a constant projection cannot split: the node stays open and
-        # redraws at the next level
-        splitting = overfull & (hi > lo)
+            start = torch.cumsum(counts, dim=1) - counts
+            lo = at(start)
+            hi = at(start + counts - 1)
+            # a constant projection cannot split: the node stays open and
+            # redraws at the next level
+            splitting = overfull & (hi > lo)
 
-        # allocate children compactly per tree, unless over the node budget
-        n_split = splitting.sum(dim=1)
-        rank = torch.cumsum(splitting.long(), dim=1) - 1
-        overflow = (n_nodes + 2 * n_split) > m
-        new_child_base = torch.where(splitting & ~overflow[:, None],
-                                     n_nodes[:, None] + 2 * rank, child_base)
-        splitting = splitting & ~overflow[:, None]
-        n_nodes = torch.where(overflow, n_nodes, n_nodes + 2 * n_split)
+            # allocate children compactly per tree, unless over the node
+            # budget
+            n_split = splitting.sum(dim=1)
+            rank = torch.cumsum(splitting.long(), dim=1) - 1
+            overflow = (n_nodes + 2 * n_split) > m
+            new_child_base = torch.where(splitting & ~overflow[:, None],
+                                         n_nodes[:, None] + 2 * rank,
+                                         child_base)
+            splitting = splitting & ~overflow[:, None]
+            n_nodes = torch.where(overflow, n_nodes, n_nodes + 2 * n_split)
 
-        # paper Eq. 1: psi ~ U[y_(r n), y_((1-r) n)] within the node
-        last_idx = torch.maximum(start, start + counts - 1)
-        cnt_f = counts.float()
-        pos_a = torch.clamp(start + torch.floor(r_lo * cnt_f).long(),
-                            start, last_idx)
-        pos_b = torch.clamp(start + torch.floor(r_hi * cnt_f).long(),
-                            start, last_idx)
-        cand_thresh = _lerp(at(pos_a), u, at(pos_b))
-        # tie escape: a collapsed percentile interval falls back to a
-        # uniform value split over the node's full (lo, hi] range
-        cand_thresh = torch.where(cand_thresh > lo, cand_thresh,
-                                  _lerp(lo, torch.clamp_min(u, 0.05), hi))
+            # paper Eq. 1: psi ~ U[y_(r n), y_((1-r) n)] within the node
+            last_idx = torch.maximum(start, start + counts - 1)
+            cnt_f = counts.float()
+            pos_a = torch.clamp(start + torch.floor(r_lo * cnt_f).long(),
+                                start, last_idx)
+            pos_b = torch.clamp(start + torch.floor(r_hi * cnt_f).long(),
+                                start, last_idx)
+            cand_thresh = _lerp(at(pos_a), u, at(pos_b))
+            # tie escape: a collapsed percentile interval falls back to a
+            # uniform value split over the node's full (lo, hi] range
+            cand_thresh = torch.where(cand_thresh > lo, cand_thresh,
+                                      _lerp(lo, torch.clamp_min(u, 0.05), hi))
 
-        proj_idx = torch.where(splitting[..., None], ci, proj_idx)
-        proj_coef = torch.where(splitting[..., None], cc, proj_coef)
-        thresh = torch.where(splitting, cand_thresh, thresh)
+            proj_idx = torch.where(splitting[..., None], ci, proj_idx)
+            proj_coef = torch.where(splitting[..., None], cc, proj_coef)
+            thresh = torch.where(splitting, cand_thresh, thresh)
 
-        # reassign the points of splitting nodes, recount occupancy
-        go_right = y >= thresh.gather(1, assign)
-        assign = torch.where(splitting.gather(1, assign),
-                             new_child_base.gather(1, assign) + go_right.long(),
-                             assign)
-        counts = torch.bincount((assign + tree_off).view(-1),
-                                minlength=L * m).view(L, m)
-        child_base = new_child_base
-        level, overfull = level + 1, overfull_leaves()
+            # reassign the points of splitting nodes, recount occupancy
+            go_right = y >= thresh.gather(1, assign)
+            assign = torch.where(splitting.gather(1, assign),
+                                 new_child_base.gather(1, assign)
+                                 + go_right.long(), assign)
+            with tracing.span("build.sync"):
+                counts = torch.bincount((assign + tree_off).view(-1),
+                                        minlength=L * m).view(L, m)
+            child_base = new_child_base
+            level, overfull = level + 1, overfull_leaves()
 
     # CSR leaf storage: one stable argsort of the final assignment
     perm = torch.sort(assign, dim=1, stable=True)[1]

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.forest import (Forest, ForestConfig, gather_candidates,
                                      gather_candidates_multi, traverse,
                                      traverse_forest)
@@ -50,28 +51,31 @@ def _stream_rerank(queries: torch.Tensor, ids: torch.Tensor, k: int,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k over the (B, M) id matrix, one ``rerank(q, ids_chunk)`` per
     candidate chunk, merged with ties to the earlier chunk."""
-    b, m = ids.shape
-    c = pick_rerank_chunk(b, m, queries.shape[1], chunk, k, kernel)
-    if c >= m:
-        return rerank(queries, ids)
-    best_d = queries.new_full((b, k), POS_INF)
-    best_i = torch.full((b, k), -1, dtype=torch.int32, device=ids.device)
-    for lo in range(0, m, c):
-        dd, ii = rerank(queries, ids[:, lo:lo + c].contiguous())
-        best_d, best_i = merge_topk_pairs(torch.cat([best_d, dd], dim=1),
-                                          torch.cat([best_i, ii], dim=1), k)
-    return best_d, torch.where(torch.isinf(best_d), -1, best_i)
+    with tracing.span("pipeline.rerank"):
+        b, m = ids.shape
+        c = pick_rerank_chunk(b, m, queries.shape[1], chunk, k, kernel)
+        if c >= m:
+            return rerank(queries, ids)
+        best_d = queries.new_full((b, k), POS_INF)
+        best_i = torch.full((b, k), -1, dtype=torch.int32, device=ids.device)
+        for lo in range(0, m, c):
+            dd, ii = rerank(queries, ids[:, lo:lo + c].contiguous())
+            best_d, best_i = merge_topk_pairs(
+                torch.cat([best_d, dd], dim=1),
+                torch.cat([best_i, ii], dim=1), k)
+        return best_d, torch.where(torch.isinf(best_d), -1, best_i)
 
 
 def _valid_ids(cand_ids: torch.Tensor, mask: torch.Tensor, dedup: bool,
                valid: torch.Tensor | None) -> torch.Tensor:
     """(B, M) ids with dead rows, masked slots and (``dedup``) repeats
     turned to -1."""
-    if valid is not None:
-        mask = mask & valid[cand_ids.long().clamp(0, valid.shape[0] - 1)]
-    if dedup:
-        mask = mask_duplicates(cand_ids, mask)
-    return torch.where(mask, cand_ids, -1).int()
+    with tracing.span("pipeline.dedup"):
+        if valid is not None:
+            mask = mask & valid[cand_ids.long().clamp(0, valid.shape[0] - 1)]
+        if dedup:
+            mask = mask_duplicates(cand_ids, mask)
+        return torch.where(mask, cand_ids, -1).int()
 
 
 def rerank_fused(queries: torch.Tensor, cand_ids: torch.Tensor,
@@ -128,10 +132,12 @@ def candidates(forest: Forest, queries: torch.Tensor, max_depth: int,
                leaf_pad: int, n_probes: int, mode: str = "auto"
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Traverse + CSR slice: (B, M) candidate ids and mask, M = L*P*pad."""
-    leaves = traverse_forest(forest, queries, max_depth, n_probes, mode)
-    if n_probes <= 1:
-        return gather_candidates(forest, leaves, leaf_pad)
-    return gather_candidates_multi(forest, leaves, leaf_pad)
+    with tracing.span("pipeline.descend"):
+        leaves = traverse_forest(forest, queries, max_depth, n_probes, mode)
+    with tracing.span("pipeline.slice"):
+        if n_probes <= 1:
+            return gather_candidates(forest, leaves, leaf_pad)
+        return gather_candidates_multi(forest, leaves, leaf_pad)
 
 
 def fused_query(forest: Forest, queries: torch.Tensor,
@@ -151,20 +157,21 @@ def fused_query(forest: Forest, queries: torch.Tensor,
     must already live there.  Returns (dists (B, k), ids (B, k)); invalid
     slots: +inf / -1.
     """
-    dev = resolve_device(device)
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-    queries = queries.contiguous()
-    quantized = isinstance(db, QuantizedDB)
-    cfg = cfg.resolved((db.fp if quantized else db).shape[0])
-    cand_ids, mask = candidates(forest, queries, cfg.max_depth, cfg.leaf_pad,
-                                n_probes, mode)
-    if quantized:
-        return rerank_fused_quantized(queries, cand_ids, mask, db, k,
-                                      expand=expand, metric=metric,
-                                      mode=mode, dedup=dedup, chunk=chunk,
-                                      valid=valid)
-    return rerank_fused(queries, cand_ids, mask, db, k, metric=metric,
-                        mode=mode, dedup=dedup, chunk=chunk, valid=valid)
+    with tracing.span("pipeline.query"):
+        dev = resolve_device(device)
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+        queries = queries.contiguous()
+        quantized = isinstance(db, QuantizedDB)
+        cfg = cfg.resolved((db.fp if quantized else db).shape[0])
+        cand_ids, mask = candidates(forest, queries, cfg.max_depth,
+                                    cfg.leaf_pad, n_probes, mode)
+        if quantized:
+            return rerank_fused_quantized(queries, cand_ids, mask, db, k,
+                                          expand=expand, metric=metric,
+                                          mode=mode, dedup=dedup,
+                                          chunk=chunk, valid=valid)
+        return rerank_fused(queries, cand_ids, mask, db, k, metric=metric,
+                            mode=mode, dedup=dedup, chunk=chunk, valid=valid)
 
 
 def staged_query(forest: Forest, queries: torch.Tensor, db: torch.Tensor,

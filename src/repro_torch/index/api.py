@@ -50,6 +50,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.device import resolve_device
 from repro_torch.filter.metadata import MetaBlock, MetadataStore
@@ -430,9 +431,11 @@ class Index:
         with neither, ``tuned_params`` apply when set, else
         ``SearchParams()``.  Reads the published view, never the lock.
         """
-        if params is None and not params_kw and self._tuned_params is not None:
-            params = self._tuned_params
-        return self._view.search(queries, params, **params_kw)
+        with tracing.span("index.search"):
+            if (params is None and not params_kw
+                    and self._tuned_params is not None):
+                params = self._tuned_params
+            return self._view.search(queries, params, **params_kw)
 
     # ------------------------------------------------------------ mutations
     def _encode_meta_locked(self, metadata: dict | None) -> dict | None:

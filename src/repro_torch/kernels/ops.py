@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import chi2_topk as _chi2
 from repro_torch.kernels import distance_topk as _dist
 from repro_torch.kernels import embedding_bag as _bag
@@ -79,9 +80,10 @@ def fused_rerank(q: torch.Tensor, ids: torch.Tensor, db: torch.Tensor, k: int,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused db-row gather + distance + top-k over one candidate chunk;
     ids (B, M) int32 with -1 marking empty slots."""
-    if use_kernel(mode, q):
-        return _fused.fused_gather_topk(q, ids, db, k, metric)
-    return _ref.fused_gather_topk_ref(q, ids, db, k, metric)
+    with tracing.span("kernel.fused_gather_topk"):
+        if use_kernel(mode, q):
+            return _fused.fused_gather_topk(q, ids, db, k, metric)
+        return _ref.fused_gather_topk_ref(q, ids, db, k, metric)
 
 
 def fused_scan(q: torch.Tensor, db: torch.Tensor, k: int, metric: str = "l2",
@@ -112,11 +114,12 @@ def traverse(feat: torch.Tensor, thresh: torch.Tensor,
              child_base: torch.Tensor, queries: torch.Tensor, max_depth: int,
              n_probes: int = 1, mode: str = "auto") -> torch.Tensor:
     """K = 1 forest descent -> (L, B), or (L, B, n_probes) leaf ids."""
-    if use_kernel(mode, queries):
-        return _trav.forest_traverse_hbm(feat, thresh, child_base, queries,
-                                         max_depth, n_probes)
-    return _ref.forest_traverse_ref(feat, thresh, child_base, queries,
-                                    max_depth, n_probes)
+    with tracing.span("kernel.forest_traverse"):
+        if use_kernel(mode, queries):
+            return _trav.forest_traverse_hbm(feat, thresh, child_base,
+                                             queries, max_depth, n_probes)
+        return _ref.forest_traverse_ref(feat, thresh, child_base, queries,
+                                        max_depth, n_probes)
 
 
 def embedding_bag(ids: torch.Tensor, weights: torch.Tensor,
